@@ -1,0 +1,30 @@
+"""Device timing on the card (counterpart of slimm_tpu/utils/devbench.py).
+
+CUDA events recorded on the current stream around each call; the time
+between them includes any host stall inside the call, so a function that
+synchronises midway is timed end to end.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def cuda_time(fn, *args, reps: int = 5, warmup: int = 1) -> float:
+    """Median seconds of fn(*args) on the current CUDA device."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("cuda_time needs a CUDA device")
+    for _ in range(warmup):
+        fn(*args)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    return float(np.median(times))
