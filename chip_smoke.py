@@ -13,16 +13,28 @@ Phases, each timed; any failure raises and the script exits non-zero:
   core     fused_profile (emit_coverage=False, the default CLI path) on the
            bench workloads, 8M records x 50 contigs and 10M x 1000, on cuda
            and on cpu: the packed stats vectors must be equal
+  stream   the streamed paths on a 4M-record bench SAM (about 1.3 GB):
+           the overlap path (profile_file's default at this size), the
+           whole-file path, chunk streaming (v2 pieces, with and without the
+           device cache), and at bin widths 40 and 20 the v2 pieces with
+           local bins of 32768 and above, v1 chunks and the overlap path's
+           fallback past uint16 bins; the path and launch counters of each
+           run are read, the abundance TSVs must be equal per bin width and
+           to a whole-file run on the CPU; pass A of the pieces must run
+           without a host sync (torch's sync debug mode "error"); file
+           seconds are the median of 3 beside a decode-only floor
   cli      `python -m slimm_tpu_torch profile` on a toy SAM against the
            oracle (--no-device); then the profile CLI on a 1M-record bench
-           SAM with the kernel launch counts reset and read around it,
-           against the same command with --device cpu
+           SAM (which takes the overlap path) with the kernel launch and
+           path counts reset and read around it, against the same command
+           with --device cpu
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The card's numbers come from this run alone.
 """
 
+import copy
 import json
 import os
 import shutil
@@ -38,6 +50,8 @@ sys.modules["jax"] = None
 RECORDS = 8_000_000
 CORE_WORKLOADS = [(8_000_000, 50, 0), (10_000_000, 1000, 2)]
 CLI_RECORDS = 1_000_000
+STREAM_RECORDS = 4_000_000
+STREAM_CHUNK = 1 << 19
 
 
 def log(msg):
@@ -211,11 +225,147 @@ def core_phase(torch, np, pipeline, cuda_time, hist, device):
         phase(f"core {n} x {n_contigs}", t0)
 
 
+def stream_phase(torch, np, pipeline, hist, tmp, device, smi):
+    """The streamed paths on `device` against each other and against the
+    whole-file path on the CPU, on one 4M-record SAM.  On a GPU, pass A of
+    the pieces runs under torch's sync debug mode "error": any call in it
+    that makes the host wait for the card raises."""
+    import bench
+    from slimm_tpu.config import EngineOptions, ProfileOptions
+    from slimm_tpu.io import native
+    from slimm_tpu_torch.engine.reports import write_abundance
+
+    require(native.available(), "stream phase: the native decoder is not "
+            "built, and neither streamed path exists without it")
+    t0 = time.perf_counter()
+    d = os.path.join(tmp, "stream")
+    os.makedirs(d)
+    w = bench.make_workload(STREAM_RECORDS, 50, seed=1)
+    sam = os.path.join(d, "stream.sam")
+    mb = bench.write_bench_sam(sam, w, 50)
+    db = bench.make_bench_db(w, 50)
+    require(int(w["lengths"].max()) // 40 >= 32768
+            and int(w["lengths"].max()) // 20 > pipeline.V2_MAX_BIN,
+            "the contigs do not reach the bins the -w 40 and -w 20 runs need")
+    log(f"  wrote {len(w['read_id'])}-record SAM ({mb:.1f} MB): "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    tsv = {}
+    secs = {}
+
+    def run(label, fn, want, *, dev=device, bin_width=0, reps=1, **knobs):
+        """fn on the SAM `reps` times with the counts reset before each
+        run and read after it; `want` holds (counter, least value) pairs."""
+        times = []
+        for _ in range(reps):
+            engine = EngineOptions(fetch_coverage=False, phase_log=False,
+                                   **knobs)
+            options = ProfileOptions(bin_width=bin_width)
+            hist.reset_launch_counts()
+            pipeline.reset_path_counts()
+            c0 = time.perf_counter()
+            st = fn(options, copy.deepcopy(db), sam, device=dev,
+                    engine=engine)
+            sync()
+            times.append(time.perf_counter() - c0)
+            counts = {k: v for k, v in pipeline.path_counts.items() if v}
+            launches = (hist.hist1_launches, hist.hist2_launches)
+            for key, least in want:
+                require(pipeline.path_counts[key] >= least,
+                        f"{label}: {key} = {pipeline.path_counts[key]}, "
+                        f"want >= {least}; counts {counts}")
+            if dev != "cpu":
+                require(launches[0] > 0 and launches[1] > 0,
+                        f"{label} launched (hist1, hist2) = {launches}")
+        out = os.path.join(d, label) + "/"
+        write_abundance(st, out, sam)
+        tsv[label] = (bin_width, open(out + "stream_profile.tsv",
+                                      "rb").read())
+        secs[label] = float(np.median(times))
+        log(f"  {label:28s} {dev} -w {bin_width or 'auto'}: "
+            f"{' / '.join(f'{x:.3f}' for x in times)} s, counts {counts}, "
+            f"launches hist1={launches[0]} hist2={launches[1]}")
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    pass_a_pieces = pipeline._pass_a_pieces
+
+    def pass_a_without_sync(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return pass_a_pieces(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    stream = pipeline.profile_file_streaming
+    whole = pipeline.profile_file
+    if device != "cpu":
+        pipeline._pass_a_pieces = pass_a_without_sync
+    try:
+        run("overlap", whole, [("overlap_files", 1), ("overlap_pieces", 2)],
+            reps=3)
+        run("whole_file", whole, [], reps=3, overlap_min_bytes=0)
+        run("stream_v2", stream,
+            [("stream_files", 1), ("stream_chunks_v2", 2)], reps=3,
+            stream_chunk=STREAM_CHUNK)
+        run("stream_v2_no_cache", stream,
+            [("stream_chunks_v2", 2), ("pass_b_reuploads", 2)],
+            stream_chunk=STREAM_CHUNK, stream_device_cache_bytes=0)
+        run("whole_file_cpu", whole, [], dev="cpu", overlap_min_bytes=0)
+        run("stream_v2_w40", stream,
+            [("stream_files", 1), ("stream_chunks_v2", 2)], bin_width=40,
+            stream_chunk=STREAM_CHUNK)
+        run("whole_file_w40", whole, [], bin_width=40, overlap_min_bytes=0)
+        run("stream_v1_w20", stream,
+            [("stream_files", 1), ("stream_chunks_v1", 2)], bin_width=20,
+            stream_chunk=STREAM_CHUNK)
+        run("overlap_w20", whole, [("overlap_fallback_bins_past_uint16", 1)],
+            bin_width=20)
+    finally:
+        pipeline._pass_a_pieces = pass_a_pieces
+    if device != "cpu":
+        log("  pass A of every piece ran under sync debug mode \"error\": "
+            "no host sync")
+
+    for width in {bw for bw, _ in tsv.values()}:
+        runs = {k: v for k, (bw, v) in tsv.items() if bw == width}
+        first = next(iter(runs.values()))
+        require(first.count(b"\n") > 2, f"-w {width}: empty profile")
+        for label, got in runs.items():
+            require(got == first, f"-w {width or 'auto'}: {label}'s TSV "
+                    f"differs from {next(iter(runs))}'s")
+        log(f"  -w {width or 'auto'}: TSVs equal ({', '.join(runs)}; "
+            f"{len(first)} bytes)")
+
+    floor = []
+    for _ in range(3):
+        c0 = time.perf_counter()
+        sr = native.NativeStreamReader(sam)
+        n_pad = 4 << 20
+        while sr.next_piece_v2(n_pad, n_pad, w["lengths"], 75, 150,
+                               np.uint8) is not None:
+            pass
+        sr.close()
+        floor.append(time.perf_counter() - c0)
+    secs["decode_floor"] = float(np.median(floor))
+    log(smi)
+    log(f"  {STREAM_RECORDS}-record SAM, file seconds (median of 3, "
+        f"{device}): overlap {secs['overlap']:.3f}, whole-file "
+        f"{secs['whole_file']:.3f}, stream {secs['stream_v2']:.3f}, "
+        f"decode-only floor {secs['decode_floor']:.3f}")
+    os.remove(sam)
+    phase("stream", t0)
+    return secs
+
+
 def cli_phase(hist, tmp, device_args):
     """The profile CLI; `device_args` select its device ([] takes the
     default, cuda).  Returns the launch counts of the main-path run."""
     import bench
     from slimm_tpu_torch import cli
+    from slimm_tpu_torch.engine import pipeline
 
     toy = _load_toy()
     py = [sys.executable, "-m", "slimm_tpu_torch"]
@@ -248,14 +398,19 @@ def cli_phase(hist, tmp, device_args):
     log(f"  wrote {len(w['read_id'])}-record SAM ({mb:.1f} MB) and DB: "
         f"{time.perf_counter() - t0:.3f} s")
     hist.reset_launch_counts()
+    pipeline.reset_path_counts()
     c0 = time.perf_counter()
     rc = cli.main(["profile", *device_args, "-o", d + "/gpu/", db, sam])
     cuda_secs = time.perf_counter() - c0
     launches = {"slimm_hist1": hist.hist1_launches,
                 "slimm_hist2": hist.hist2_launches}
+    pieces = pipeline.path_counts["overlap_pieces"]
     require(rc == 0, f"profile exited {rc}")
     require(all(v > 0 for v in launches.values()),
             f"main path launched {launches}")
+    require(pipeline.path_counts["overlap_files"] == 1 and pieces >= 2,
+            f"the {mb:.1f} MB SAM did not take the overlap path: "
+            f"{pipeline.path_counts}")
     c0 = time.perf_counter()
     run(py + ["profile", "--device", "cpu", "-o", d + "/cpu/", db, sam])
     cpu_secs = time.perf_counter() - c0
@@ -265,7 +420,7 @@ def cli_phase(hist, tmp, device_args):
     require(got.count(b"\n") > 2, "1M-record profile is empty")
     log(f"  1M-record profile.tsv cuda == cpu ({len(got)} bytes); cli wall "
         f"cuda {cuda_secs:.3f} s (in process), cpu {cpu_secs:.3f} s "
-        f"(subprocess); launches {launches}")
+        f"(subprocess); launches {launches}, overlap pieces {pieces}")
     phase("cli 1M records", t0)
     return launches
 
@@ -318,6 +473,7 @@ def main() -> int:
 
     tmp = tempfile.mkdtemp(prefix="slimm_chip_smoke_")
     try:
+        stream_phase(torch, np, pipeline, hist, tmp, "cuda", smi[0])
         launches = cli_phase(hist, tmp, [])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

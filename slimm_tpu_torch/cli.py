@@ -6,8 +6,10 @@
   collect  — slimm_tpu.cli.cmd_collect, unchanged
 
 A missing GPU under `--device cuda` is an error, never a silent run on the
-CPU.  The scale-out options of slimm_tpu's parser that the port does not
-have yet are refused.
+CPU.  `--stream N` profiles each file by chunk streaming; files of 64 MB or
+more take the overlap path by default.  The options of slimm_tpu's parser
+that the port does not have yet (`--shards`/`--model-shards` above 1,
+`--trace-dir`) are refused.
 """
 
 from __future__ import annotations
@@ -31,8 +33,6 @@ def _not_ported(args) -> str | None:
         return "--shards"
     if args.model_shards > 1:
         return "--model-shards"
-    if args.stream != 0:
-        return "--stream"
     if args.trace_dir is not None:
         return "--trace-dir"
     return None
@@ -76,7 +76,7 @@ def cmd_profile(args) -> int:
     from slimm_tpu.oracle import OracleProfiler
     from slimm_tpu.utils.timer import Timer
 
-    from .engine.pipeline import profile_file
+    from .engine.pipeline import profile_file, profile_file_streaming
     from .engine.reports import write_abundance, write_coverage, write_raw_stat
 
     options = ProfileOptions(
@@ -90,6 +90,7 @@ def cmd_profile(args) -> int:
     # the bin-resolution histograms are only needed for -ro/-co output
     engine = EngineOptions(fetch_coverage=args.raw_output
                            or args.coverage_output,
+                           stream_chunk=args.stream,
                            hash_read_names=args.hash_read_names)
     device = torch.device(args.device)
 
@@ -112,6 +113,9 @@ def cmd_profile(args) -> int:
                                   list(zip(af.contig_names,
                                            af.contig_lengths.tolist())))
             state = prof.run(af.raw_records())
+        elif engine.stream_chunk:
+            state = profile_file_streaming(per_file_options, db, path,
+                                           device=device, engine=engine)
         else:
             state = profile_file(per_file_options, db, path, device=device,
                                  engine=engine)

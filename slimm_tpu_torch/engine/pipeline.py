@@ -15,15 +15,30 @@ for eager PyTorch on one device (the `device` of the tensors it is given):
 
 Records are int32 (read_id, rid, pos) arrays grouped by read id, unpadded.
 Per-read segment reductions run along the record axis as shift windows
-(window > 0) or doubling scans (window == 0), as in the JAX package.  The
-TPU-only transfer formats, padding buckets and one-hot matmul gathers are
-not ported: tables are read with plain index gathers.  `pipeline.py:N`
-below refers to slimm_tpu/engine/pipeline.py.
+(window > 0) or doubling scans (window == 0), as in the JAX package.
+Padding buckets and one-hot matmul gathers are not ported: tables are read
+with plain index gathers.  `pipeline.py:N` below refers to
+slimm_tpu/engine/pipeline.py.
+
+Streamed files (the overlap path of `profile_file` for large files, and
+`profile_file_streaming`) run the same passes piece by piece: pass A per
+piece as the native stream decoder emits it, the cutoffs once after EOF,
+pass B over the kept pieces.  Reads never span pieces and every pass-B
+output is a sum or an OR over reads, so this is exact.  The port reads the
+v2 pieces that the native decoder (slimm_tpu.io.native) encodes: the
+bitpacked read boundaries, the narrow contig ids and the uint16 local
+bins, each cut to the piece's valid records (no padding).  v1 chunks (bin
+tables past uint16) upload their int32 (read_id, rid, pos) arrays as they
+are: `pack_records_compact` (pipeline.py:962-978) was a format for the TPU
+host's slow host-to-device link, and it costs a host pass per chunk.
 """
 
 from __future__ import annotations
 
+import os
+import queue
 import sys
+import threading
 
 import numpy as np
 import torch
@@ -44,10 +59,35 @@ MAX_WINDOW = 4
 # the bitpacked pair presence
 _N_SCALARS = 8
 
-# index of the lowest set bit of an 8-bit mask, 7 for the empty mask: the
-# first lineage level on which all of a read's targets agree
-_FIRST_LEVEL = np.array([7] + [(z & -z).bit_length() - 1 for z in range(1, 256)],
-                        np.int32)
+# v2 pieces carry the local bin as uint16; files whose contigs have more
+# bins stream v1 chunks, and the overlap path gives way (pipeline.py:79)
+V2_MAX_BIN = int(np.iinfo(np.uint16).max)
+
+# Which streamed paths ran: files and pieces of the overlap path, why it
+# gave way to the whole-file path, files and chunks (v2, v1) of chunk
+# streaming, and pieces that pass B uploaded again from host copies.
+path_counts = dict.fromkeys((
+    "overlap_files", "overlap_pieces", "overlap_fallback_no_native",
+    "overlap_fallback_open", "overlap_fallback_bins_past_uint16",
+    "overlap_fallback_overflow", "overlap_fallback_not_grouped",
+    "stream_files", "stream_chunks_v2", "stream_chunks_v1",
+    "pass_b_reuploads"), 0)
+
+
+def reset_path_counts():
+    for key in path_counts:
+        path_counts[key] = 0
+
+
+# copied from slimm_tpu/engine/pipeline.py:82-94 (the v2 stream's piece cap)
+def _bucket(n: int, quantum: int = 8192) -> int:
+    """Round up to a padding bucket: geometric 1.25x steps snapped to 2048."""
+    if n <= quantum:
+        return max(quantum, 1)
+    b = float(quantum)
+    while b < n:
+        b *= 1.25
+    return -(-int(b) // 2048) * 2048
 
 
 # ---------------------------------------------------------------------------
@@ -114,18 +154,26 @@ def _count(mask) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _pass_a_local(read_id, rid, pos, t: DeviceTables, *, dedup_window,
-                  k_steps, window):
-    """Grouped records -> dedup mask, global bins, uniqueness, coverage."""
-    valid = read_id >= 0
+def _center_gbin(rid, pos, t: DeviceTables):
+    """Global bin of each record's center position, with uint32 wrap
+    (slimm.hpp:200-201), in int64: torch has no uint32 add or minimum on
+    the CPU."""
     rid_c = rid.clamp(0, t.n_contigs - 1)
-    # center-position binning with uint32 wrap (slimm.hpp:200-201), in
-    # int64: torch has no uint32 add or minimum on the CPU
     u32 = 0xFFFFFFFF
     center = torch.minimum(((pos.to(torch.int64) & u32) + t.half) & u32,
                            t.lengths[rid_c])
-    local_bin = (center // t.bin_width).to(torch.int32)
-    t_gbin = t.bin_offset[rid_c] + local_bin
+    return t.bin_offset[rid_c] + (center // t.bin_width).to(torch.int32)
+
+
+def _pass_a_local(read_id, rid, pos, t: DeviceTables, *, dedup_window,
+                  k_steps, window, t_gbin=None):
+    """Grouped records -> dedup mask, global bins, uniqueness, coverage.
+
+    t_gbin, when given, holds the records' global bins already (v2 pieces
+    carry the decoder's local bin) and pos is not read."""
+    valid = read_id >= 0
+    if t_gbin is None:
+        t_gbin = _center_gbin(rid, pos, t)
 
     # first-hit-wins (read, contig) dedup (read_stat.hpp:116-135)
     dup = torch.zeros_like(valid)
@@ -240,7 +288,7 @@ def _pass_b_local(read_id, rid, t_gbin, nondup, valid_mask, t: DeviceTables,
     rid_mx_c = rid_mx.clamp(0, C - 1)
     # first agreeing level = lowest zero bit of the OR-ed disagreement mask
     z = ~disag & 0xFF
-    first_level = torch.from_numpy(_FIRST_LEVEL).to(z.device)[z.long()]
+    first_level = t.first_level[z.long()]
     # lineage[max rid][first agreeing level, or 7] (slimm.hpp:516-531)
     lca_end = t.lineage.view(-1)[rid_mx_c * 8 + first_level]
     lca_clip = lca_end.clamp(0, t.n_dense - 1)
@@ -269,13 +317,16 @@ def _pass_b_local(read_id, rid, t_gbin, nondup, valid_mask, t: DeviceTables,
                                  torch.where(multi_end, code_end, -1),
                                  end_mask, -1, k_steps=k_steps, window=window)
     t_multi = tmask & (total > 1)
-    # the domain is padded to 1024 as in the JAX layout: the packed vector
-    # carries pdom / 32 presence words
-    pdom = -(-(C * t.n_codes) // 1024) * 1024
     pidx = rid_c * t.n_codes + code_b.clamp(0, t.n_codes - 1)
-    out["pair_levels"] = hist1(pidx, t_multi, pdom) > 0
+    out["pair_levels"] = hist1(pidx, t_multi, _pair_domain(t)) > 0
     out["uniq_matches2"] = _count(end_mask & (cnt == 1))
     return out
+
+
+def _pair_domain(t: DeviceTables) -> int:
+    """Slots of the (contig x code) pair presence, padded to 1024 as in the
+    JAX layout: the packed vector carries pdom / 32 presence words."""
+    return -(-(t.n_contigs * t.n_codes) // 1024) * 1024
 
 
 def _pack_bits_words(x):
@@ -304,29 +355,70 @@ def fused_profile(read_id, rid, pos, t: DeviceTables, *, dedup_window,
     (int32[n_bins]) that the -ro/-co reports need."""
     a = _pass_a_local(read_id, rid, pos, t, dedup_window=dedup_window,
                       k_steps=k_steps, window=window)
-    rc, nzc = _contig_sums_nz(a["cov"], t)
-    urc, nzu = _contig_sums_nz(a["uniq_cov"], t)
-    cc, ucc, valid_mask = _cutoffs(rc, nzc, urc, nzu, t)
+    return _core_after_a(
+        a["cov"], a["uniq_cov"], a["uniq_matches"],
+        [(read_id, rid, a["t_gbin"], a["nondup"], k_steps, window)], t,
+        emit_coverage=emit_coverage)
 
-    b = _pass_b_local(read_id, rid, a["t_gbin"], a["nondup"], valid_mask, t,
+
+def _core_after_a(cov, uniq_cov, uniq_matches, pieces, t: DeviceTables, *,
+                  emit_coverage):
+    """Everything after the pass-A histograms (pipeline.py:682-770): the
+    per-contig sums, the host cutoffs, pass B over `pieces` and the packed
+    vector.  `pieces` yields (read_id, rid, t_gbin, nondup, k_steps,
+    window) per group of whole reads: the file's records in one piece, or
+    the streamed pieces one by one."""
+    rc, nzc = _contig_sums_nz(cov, t)
+    urc, nzu = _contig_sums_nz(uniq_cov, t)
+    cc, ucc, valid_mask = _cutoffs(rc, nzc, urc, nzu, t)
+    b = _pass_b_acc(t, emit_coverage)
+    for read_id, rid, t_gbin, nondup, k_steps, window in pieces:
+        _pass_b_chunk(b, read_id, rid, t_gbin, nondup, valid_mask, t,
                       k_steps=k_steps, window=window,
                       emit_coverage=emit_coverage)
+    u2 = _contig_sums_nz(b["u2"], t)[0] if emit_coverage else b["u2"]
+    out = dict(packed=_pack(rc, urc, nzc, nzu, u2, valid_mask, uniq_matches,
+                            b["um2"], cc, ucc, b["taxon"], b["pair"]))
     if emit_coverage:
-        u2, _ = _contig_sums_nz(b["uniq_cov2"], t)
-    else:
-        u2 = b["u2_counts"]
-    cuts = torch.from_numpy(np.array([cc, ucc], np.float32).view(np.int32))
-    scalars = torch.cat([torch.stack([a["uniq_matches"], b["uniq_matches2"]]),
-                         cuts.to(rc.device),
-                         rc.new_zeros(_N_SCALARS - 4)])
-    packed = torch.cat([rc, urc, nzc, nzu, u2, valid_mask.to(torch.int32),
-                        scalars, b["taxon_counts"],
-                        _pack_bits_words(b["pair_levels"])])
-    out = dict(packed=packed)
-    if emit_coverage:
-        out.update(cov=a["cov"], uniq_cov=a["uniq_cov"],
-                   uniq_cov2=b["uniq_cov2"])
+        out.update(cov=cov, uniq_cov=uniq_cov, uniq_cov2=b["u2"])
     return out
+
+
+def _pass_b_acc(t: DeviceTables, emit_coverage):
+    """Zeroed pass-B accumulators: u2 (per bin with emit_coverage, else per
+    contig), taxon counts, uniq_matches2 and the pair presence."""
+    dev = t.bin_offset.device
+
+    def zeros(n, dtype=torch.int32):
+        return torch.zeros(n, dtype=dtype, device=dev)
+
+    return dict(u2=zeros(t.n_bins if emit_coverage else t.n_contigs),
+                taxon=zeros(t.n_dense), um2=zeros(()),
+                pair=zeros(_pair_domain(t), torch.bool))
+
+
+def _pass_b_chunk(acc, read_id, rid, t_gbin, nondup, valid_mask,
+                  t: DeviceTables, *, k_steps, window, emit_coverage):
+    """Pass B of one piece of whole reads against the validity mask, added
+    into `acc` in place (pipeline.py:1523-1552, where JAX donates the
+    buffers); the pair presence is OR-ed."""
+    b = _pass_b_local(read_id, rid, t_gbin, nondup, valid_mask, t,
+                      k_steps=k_steps, window=window,
+                      emit_coverage=emit_coverage)
+    acc["u2"] += b["uniq_cov2"] if emit_coverage else b["u2_counts"]
+    acc["taxon"] += b["taxon_counts"]
+    acc["um2"] += b["uniq_matches2"]
+    acc["pair"] |= b["pair_levels"]
+
+
+def _pack(rc, urc, nzc, nzu, u2, valid_mask, uniq_matches, uniq_matches2,
+          cc, ucc, taxon_counts, pair_levels):
+    """The packed int32 vector (pipeline.py:751-766 and 1487-1500)."""
+    cuts = torch.from_numpy(np.array([cc, ucc], np.float32).view(np.int32))
+    scalars = torch.cat([torch.stack([uniq_matches, uniq_matches2]),
+                         cuts.to(rc.device), rc.new_zeros(_N_SCALARS - 4)])
+    return torch.cat([rc, urc, nzc, nzu, u2, valid_mask.to(torch.int32),
+                      scalars, taxon_counts, _pack_bits_words(pair_levels)])
 
 
 # ---------------------------------------------------------------------------
@@ -555,7 +647,23 @@ def open_alignment_file(path: str, engine: EngineOptions | None = None):
 
 def profile_file(options: ProfileOptions, db: SlimmDatabase, path: str, *,
                  device, engine: EngineOptions | None = None) -> ProfileState:
-    """Decode one SAM/BAM file whole and profile it on `device`."""
+    """Decode one SAM/BAM file and profile it on `device`.
+
+    A file of at least `engine.overlap_min_bytes` takes the overlap path
+    (pipeline.py:1277-1288): pass A runs on each piece while the native
+    decoder goes on with the rest of the file.  Otherwise, or when that
+    path gives way, the file is decoded whole first."""
+    engine = engine or EngineOptions()
+    if engine.use_native and engine.overlap_min_bytes > 0:
+        try:
+            big = os.path.getsize(path) >= engine.overlap_min_bytes
+        except OSError:
+            big = False
+        if big:
+            st = _profile_file_overlap(options, db, path, device=device,
+                                       engine=engine)
+            if st is not None:
+                return st
     af = open_alignment_file(path, engine)
     batch = af.load()
     return profile_arrays(
@@ -563,3 +671,371 @@ def profile_file(options: ProfileOptions, db: SlimmDatabase, path: str, *,
         batch.read_id.astype(np.int32), batch.rid, batch.pos,
         batch.n_reads, batch.hits_count, batch.avg_read_length,
         device=device, engine=engine, max_targets=batch.max_targets)
+
+
+# ---------------------------------------------------------------------------
+# streamed files: pieces of whole reads (pipeline.py:876-928, 1306-1826)
+# ---------------------------------------------------------------------------
+#
+# A piece is (format, arrays, on_device, n, k_steps, window): "v2" arrays
+# are (bitpacked read boundaries uint8, contig id uint8|int16|int32, local
+# bin as int16 bits), "v1" arrays (read_id, rid, pos) int32; n records, no
+# padding; (k_steps, window) its segment plan.  Pass A decodes each piece
+# as it arrives; the piece stays on the device (or, past the byte budget,
+# on the host) for pass B, which decodes it again.
+
+
+def _unpack_read_groups(bnd_packed, n_pad, n_valid):
+    """Grouped read ids from a bitpacked boundary mask (pipeline.py:111-125;
+    bit = first record of its read, numpy packbits little bit-order):
+    cumsum(bits) - 1 over the first n_pad records, -1 from n_valid on."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=bnd_packed.device)
+    bits = ((bnd_packed[:, None] >> shifts) & 1).reshape(-1)[:n_pad]
+    gid = torch.cumsum(bits, 0, dtype=torch.int32) - 1
+    if n_valid < n_pad:
+        gid[n_valid:] = -1
+    return gid
+
+
+def _v2_host(bnd, rid_p, bin_p, n):
+    """The n valid records of a piece from `next_piece_v2`; the uint16 bins
+    as int16 bits, which `_decode_v2` widens with a mask (torch's uint16
+    has few CUDA kernels, and a plain int16 read would turn bins of 32768
+    and above negative)."""
+    return bnd[:-(-n // 8)], rid_p[:n], bin_p[:n].view(np.int16)
+
+
+def _upload(arrays, device):
+    """Host arrays onto `device`.  On a GPU each goes through pinned memory
+    with a non_blocking copy, so the host does not wait for it; the pinned
+    block comes from PyTorch's caching host allocator, which keeps it until
+    its copy has run.  On the CPU the tensors share the arrays' memory."""
+    out = []
+    for a in arrays:
+        x = torch.from_numpy(np.ascontiguousarray(a))
+        if device.type != "cpu":
+            x = x.pin_memory().to(device, non_blocking=True)
+        out.append(x)
+    return tuple(out)
+
+
+def _decode_v2(arrays, n, t: DeviceTables):
+    """(read_id, rid, t_gbin) int32 of a v2 piece (pipeline.py:890-894)."""
+    bnd, rid_s, lbin = arrays
+    rid = rid_s.to(torch.int32)
+    t_gbin = (t.bin_offset[rid.clamp(0, t.n_contigs - 1)]
+              + (lbin.to(torch.int32) & 0xFFFF))
+    return _unpack_read_groups(bnd, n, n), rid, t_gbin
+
+
+def _decode_v1(arrays, n, t: DeviceTables):
+    """(read_id, rid, t_gbin) of a v1 chunk: bins from the positions."""
+    read_id, rid, pos = arrays
+    return read_id, rid, _center_gbin(rid, pos, t)
+
+
+_DECODE = {"v2": _decode_v2, "v1": _decode_v1}
+
+
+def piece_pass_a_acc(acc, read_id, rid, t_gbin, t: DeviceTables, *, k_steps,
+                     window):
+    """Pass A over one piece (pipeline.py:879-902, 1467-1483), added into
+    acc's cov, uniq_cov and uniq_matches in place.  The native stream
+    decoder has deduped the targets, so dedup_window is 0; (k_steps,
+    window) is the piece's own plan."""
+    a = _pass_a_local(read_id, rid, None, t, dedup_window=0, k_steps=k_steps,
+                      window=window, t_gbin=t_gbin)
+    acc["cov"] += a["cov"]
+    acc["uniq_cov"] += a["uniq_cov"]
+    acc["uniq_matches"] += a["uniq_matches"]
+
+
+def _pass_a_pieces(next_piece, t: DeviceTables, *, budget, counter):
+    """Pass A over the pieces that next_piece() returns, until None.
+
+    Each piece is uploaded and its pass A enqueued while the decoder goes
+    on; nothing here waits for the device.  Uploaded pieces stay on the
+    device up to `budget` bytes (None: all), later ones as host copies
+    (pipeline.py:1741-1768).  Returns (pass-A accumulators, kept pieces)."""
+    dev = t.bin_offset.device
+    acc = dict(cov=torch.zeros(t.n_bins, dtype=torch.int32, device=dev),
+               uniq_cov=torch.zeros(t.n_bins, dtype=torch.int32, device=dev),
+               uniq_matches=torch.zeros((), dtype=torch.int32, device=dev))
+    kept = []
+    while (piece := next_piece()) is not None:
+        fmt, host, n, k_steps, window = piece
+        if n == 0:
+            continue
+        arrays = _upload(host, dev)
+        nbytes = sum(a.nbytes for a in host)
+        on_device = budget is None or budget >= nbytes
+        if on_device and budget is not None:
+            budget -= nbytes
+        kept.append((fmt, arrays if on_device else host, on_device, n,
+                     k_steps, window))
+        read_id, rid, t_gbin = _DECODE[fmt](arrays, n, t)
+        piece_pass_a_acc(acc, read_id, rid, t_gbin, t, k_steps=k_steps,
+                         window=window)
+        path_counts[counter] += 1
+    return acc, kept
+
+
+def _pass_b_pieces(kept, t: DeviceTables):
+    """The kept pieces as `_core_after_a` reads them; host copies are
+    uploaded again (pipeline.py:1803-1810)."""
+    dev = t.bin_offset.device
+    for fmt, arrays, on_device, n, k_steps, window in kept:
+        if not on_device:
+            arrays = _upload(arrays, dev)
+            path_counts["pass_b_reuploads"] += 1
+        read_id, rid, t_gbin = _DECODE[fmt](arrays, n, t)
+        yield read_id, rid, t_gbin, read_id >= 0, k_steps, window
+
+
+def _stream_totals(st, sr, path) -> int:
+    """The stream's totals into `st`, after its last piece; its hits."""
+    n_reads, hits_count, _ = sr.totals()
+    warn = sr.warning()
+    if warn:
+        print(f"[WARNING] {path}: {warn}", file=sys.stderr)
+    st.hits_count = hits_count
+    st.matches_count = n_reads
+    if hits_count == 0:
+        print("[WARNING] No mapped reads found in BAM file!", file=sys.stderr)
+    return hits_count
+
+
+def _core_after_pieces(acc, kept, t, engine):
+    return _core_after_a(acc["cov"], acc["uniq_cov"], acc["uniq_matches"],
+                         _pass_b_pieces(kept, t), t,
+                         emit_coverage=engine.fetch_coverage)
+
+
+# copied from slimm_tpu/engine/pipeline.py:1597-1624
+def _stream_init(options: ProfileOptions, db: SlimmDatabase, sr,
+                 avg: int | None = None):
+    """Shared streaming setup: ProfileState + dense taxonomy + the numpy
+    bin-table geometry both the single-device and the sharded streaming
+    paths dispatch against.  `avg` overrides the stream's sampled
+    average read length (multi-host: process 0's sample is broadcast so
+    every process agrees on bin_width)."""
+    st = ProfileState(options=options, ac__taxid=db.ac__taxid,
+                      taxid__name=db.taxid__name)
+    if avg is None:
+        avg = sr.avg_read_length
+    st.avg_read_length = avg
+    if options.bin_width == 0:
+        options.bin_width = avg
+    st.init_contigs(sr.contig_names, sr.contig_lengths, options.bin_width)
+    dense = tensorize(db, sr.contig_names)
+    total_bins = int(st.nbins.sum())
+    geom = dict(
+        n_contigs=len(st.accessions),
+        total_bins=total_bins,
+        total_bins_pad=-(-total_bins // 1024) * 1024,
+        lengths_u32=st.lengths.astype(np.uint32),
+        bin_offset=st.bin_offset.astype(np.int32),
+        bin_ends=(st.bin_offset + st.nbins).astype(np.int32),
+        half=np.int32(avg // 2),
+        bin_width=np.int32(options.bin_width),
+        q=np.float32(options.cov_cut_off))
+    return st, dense, geom
+
+
+def _rid_dtype(n_contigs):
+    """The v2 pieces' contig id type (pipeline.py:1373-1378)."""
+    if n_contigs <= np.iinfo(np.uint8).max:
+        return np.uint8
+    if n_contigs <= np.iinfo(np.int16).max:
+        return np.int16
+    return np.int32
+
+
+def _v2_pieces(sr, cap, geom):
+    """next_piece() over the v2 pieces of at most `cap` targets that the
+    C++ decoder encodes while its tokenizer thread runs ahead.  Each piece
+    is planned from its own longest read, which the same C++ take reports
+    (pipeline.py:1385-1398).  The JAX package's chunk streaming plans from
+    sr.max_targets instead (pipeline.py:1700), which the reader gives as 0
+    until EOF (ROADMAP C1)."""
+    rid_dtype = _rid_dtype(geom["n_contigs"])
+
+    def next_piece():
+        piece = sr.next_piece_v2(cap, cap, geom["lengths_u32"], geom["half"],
+                                 geom["bin_width"], rid_dtype, with_plan=True)
+        if piece is None:
+            return None
+        bnd, rid_p, bin_p, nv, _, max_run = piece
+        k_steps, window = plan_from_max_run(max(int(max_run), 1))
+        n = int(nv)
+        return "v2", _v2_host(bnd, rid_p, bin_p, n), n, k_steps, window
+
+    return next_piece
+
+
+def _max_bin(st) -> int:
+    return int(st.nbins.max() if len(st.nbins) else 0)
+
+
+def _profile_file_overlap(options: ProfileOptions, db: SlimmDatabase,
+                          path: str, *, device, engine: EngineOptions
+                          ) -> ProfileState | None:
+    """Whole-file profile with pass A overlapping the decode
+    (pipeline.py:1306-1446).  Returns None, with options.bin_width as it
+    was, where the JAX package's overlap path gives way: no native
+    decoder, a file the stream reader cannot open, bins past uint16, one
+    read's targets past a piece, or input that stops being qname-grouped
+    partway (coordinate-sorted input is regrouped by the decoder at EOF and
+    stays on this path)."""
+    from slimm_tpu.io import native
+
+    def give_way(cause):
+        path_counts["overlap_fallback_" + cause] += 1
+
+    if not native.available():
+        return give_way("no_native")
+    try:
+        sr = native.NativeStreamReader(path,
+                                       hash_names=engine.hash_read_names)
+    except ValueError:
+        return give_way("open")
+    bw0 = options.bin_width
+    st, dense, geom = _stream_init(options, db, sr)
+    if _max_bin(st) > V2_MAX_BIN:
+        options.bin_width = bw0
+        return give_way("bins_past_uint16")
+    timer = PhaseTimer(enabled=engine.phase_log)
+    timer.start("Analysing alignments, reads and references ....... ")
+
+    # the JAX package's piece size: at the default cap, scaled up so that a
+    # file makes at most ~56 pieces (bytes per record over-estimated:
+    # ~100 for SAM text, ~25 for BGZF); an explicit cap is used exactly
+    cap = engine.overlap_piece_targets
+    if cap == type(engine)().overlap_piece_targets:
+        bpr = 25 if path.lower().endswith((".bam", ".gz", ".bgzf")) else 100
+        try:
+            est_targets = os.path.getsize(path) // bpr + 1
+        except OSError:
+            est_targets = 0
+        cap = max(cap, -(-est_targets // 56))
+    n_s = -(-cap // 2048) * 2048
+    t = device_tables(st, dense, options, device)
+
+    try:
+        acc, kept = _pass_a_pieces(_v2_pieces(sr, n_s, geom), t, budget=None,
+                                   counter="overlap_pieces")
+    except ValueError as e:
+        if "not qname-grouped" not in str(e):
+            raise
+        options.bin_width = bw0
+        return give_way("not_grouped")
+    except OverflowError:  # one read's targets exceed a piece
+        options.bin_width = bw0
+        return give_way("overflow")
+    path_counts["overlap_files"] += 1
+    if _stream_totals(st, sr, path) == 0:
+        timer.lap()
+        return st
+    out = _core_after_pieces(acc, kept, t, engine)
+    return _finalize_state(st, out, dense, engine, options, timer)
+
+
+def _decode_ahead(sr, chunk_targets):
+    """v1 chunks decoded ahead by a daemon thread through a queue of two
+    (pipeline.py:1703-1734; also `_open_stream`, 1555-1594).  Returns
+    (next_chunk, thread); next_chunk() re-raises the decoder's errors."""
+    feed: queue.Queue = queue.Queue(maxsize=2)
+
+    def producer():
+        try:
+            while True:
+                c = sr.next_chunk(chunk_targets)
+                feed.put(("ok", c))
+                if c is None:
+                    return
+        except Exception as e:  # non-grouped input or decode error
+            feed.put(("err", e))
+
+    th = threading.Thread(target=producer, daemon=True)
+    th.start()
+
+    def next_chunk():
+        kind, val = feed.get()
+        if kind == "err":
+            raise val
+        return val
+
+    return next_chunk, th
+
+
+def profile_file_streaming(options: ProfileOptions, db: SlimmDatabase,
+                           path: str, *, device,
+                           engine: EngineOptions | None = None,
+                           chunk_targets: int | None = None) -> ProfileState:
+    """Chunk-streaming profile of one SAM/BAM file (pipeline.py:1627-1826):
+    the same result as profile_file, with the records on the device only
+    up to `engine.stream_device_cache_bytes`.  v2 pieces while every
+    contig's bins fit uint16, else v1 chunks.  Falls back to profile_file
+    where the JAX package does: no native decoder, a file the stream
+    reader cannot open, input that stops being qname-grouped partway, or
+    one read's targets past a v2 piece."""
+    engine = engine or EngineOptions()
+    chunk_targets = chunk_targets or engine.stream_chunk or (4 << 20)
+    timer = PhaseTimer(enabled=engine.phase_log)
+
+    timer.start("Streaming alignment chunks ....................... ")
+    from slimm_tpu.io import native
+    if not native.available():
+        return profile_file(options, db, path, device=device, engine=engine)
+    bw0 = options.bin_width
+    try:
+        sr = native.NativeStreamReader(path,
+                                       hash_names=engine.hash_read_names)
+    except ValueError:
+        return profile_file(options, db, path, device=device, engine=engine)
+
+    st, dense, geom = _stream_init(options, db, sr)
+    t = device_tables(st, dense, options, device)
+    th = None
+    if _max_bin(st) <= V2_MAX_BIN:
+        next_piece = _v2_pieces(sr, _bucket(chunk_targets, engine.batch_pad),
+                                geom)
+        counter = "stream_chunks_v2"
+    else:
+        next_chunk, th = _decode_ahead(sr, chunk_targets)
+        counter = "stream_chunks_v1"
+
+        def next_piece():
+            chunk = next_chunk()
+            if chunk is None:
+                return None
+            _, k_steps, window = seg_plan(chunk[0])
+            return "v1", chunk, len(chunk[0]), k_steps, window
+
+    try:
+        acc, kept = _pass_a_pieces(next_piece, t,
+                                   budget=engine.stream_device_cache_bytes,
+                                   counter=counter)
+    except ValueError as e:
+        if "not qname-grouped" not in str(e):
+            raise
+        if th is not None:
+            th.join()
+        options.bin_width = bw0  # undo _stream_init's auto default
+        return profile_file(options, db, path, device=device, engine=engine)
+    except OverflowError:  # one read's targets exceed a v2 piece
+        options.bin_width = bw0
+        return profile_file(options, db, path, device=device, engine=engine)
+    if th is not None:
+        th.join()
+    path_counts["stream_files"] += 1
+    hits_count = _stream_totals(st, sr, path)
+    timer.lap()
+    if hits_count == 0:
+        return st
+    timer.start("Analysing alignments, reads and references ....... ")
+    out = _core_after_pieces(acc, kept, t, engine)
+    timer.lap()
+    t2 = PhaseTimer(enabled=engine.phase_log)
+    t2.start("Filtering + LCA (fused above) ..................... ")
+    return _finalize_state(st, out, dense, engine, options, t2)

@@ -13,6 +13,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+# index of the lowest set bit of an 8-bit mask, 7 for the empty mask: the
+# first lineage level on which all of a read's targets agree (pass B's LCA)
+_FIRST_LEVEL = np.array([7] + [(z & -z).bit_length() - 1 for z in range(1, 256)],
+                        np.int32)
+
 
 @dataclass
 class DeviceTables:
@@ -28,6 +33,7 @@ class DeviceTables:
     n_bins: int                # total bins over all contigs
     n_dense: int               # dense taxon ids
     n_codes: int               # pair codes per contig: 8 levels + S
+    first_level: torch.Tensor  # int32[256]: _FIRST_LEVEL on the device
 
     @property
     def n_contigs(self) -> int:
@@ -51,7 +57,8 @@ class DeviceTables:
                    nbins=(bin_ends - bin_offset).astype(np.float32),
                    half=int(half), bin_width=int(bin_width), q=np.float32(q),
                    n_bins=int(bin_ends[-1]) if len(bin_ends) else 0,
-                   n_dense=int(n_dense), n_codes=int(n_codes))
+                   n_dense=int(n_dense), n_codes=int(n_codes),
+                   first_level=dev(_FIRST_LEVEL, np.int32))
 
 
 def device_tables(st, dense, options, device) -> DeviceTables:

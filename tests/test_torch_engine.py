@@ -160,15 +160,34 @@ def test_raw_records_device_and_host_dedup(records, toy_dir):
     assert_states_equal(_oracle(db, sam, ProfileOptions()), st_t)
 
 
+@pytest.mark.parametrize("path", ["whole_file", "overlap", "stream_v2",
+                                  "stream_v1"])
 @pytest.mark.parametrize("seed", [10_000, 10_003, 10_006, 10_011, 10_017,
                                   10_024])
-def test_fuzz_cases_match_oracle(seed, tmp_path, toy_dir):
+def test_fuzz_cases_match_oracle(seed, path, tmp_path, toy_dir, monkeypatch):
+    # each case through the whole-file path, the overlap path (pieces of
+    # 2,048 targets) and chunk streaming (v2 pieces; v1 chunks of 64)
+    from slimm_tpu_torch.engine import pipeline as tp
+
     records, options = gen_case(np.random.default_rng(seed))
     db = build_toy_db(toy_dir)
     sam = write_sam(str(tmp_path), records, name=f"fuzz_{seed}.sam")
     st_o = _oracle(db, sam, options)
-    st_t = profile_file(copy.deepcopy(options), copy.deepcopy(db), sam,
-                        device=CPU, engine=EngineOptions(phase_log=False))
+    tp.reset_path_counts()
+    if path.startswith("stream"):
+        if path == "stream_v1":
+            monkeypatch.setattr(tp, "V2_MAX_BIN", 0)
+        st_t = tp.profile_file_streaming(
+            copy.deepcopy(options), copy.deepcopy(db), sam, device=CPU,
+            engine=EngineOptions(phase_log=False), chunk_targets=64)
+        assert tp.path_counts["stream_files"] == 1
+    else:
+        eng = EngineOptions(phase_log=False,
+                            overlap_min_bytes=int(path == "overlap"),
+                            overlap_piece_targets=2048)
+        st_t = profile_file(copy.deepcopy(options), copy.deepcopy(db), sam,
+                            device=CPU, engine=eng)
+        assert tp.path_counts["overlap_files"] == int(path == "overlap")
     if st_o.hits_count == 0:
         assert st_t.hits_count == 0
         return
@@ -273,6 +292,39 @@ def test_cli_tsv_bytes_match_slimm_tpu(case, built_db, toy_dir, tmp_path):
                            shallow=False), name
 
 
+@pytest.mark.parametrize("extra", [[], ["-ro", "-co"], ["-d"]],
+                         ids=["default", "ro_co", "directory"])
+def test_cli_stream_tsv_bytes_match_slimm_tpu(extra, built_db, toy_dir,
+                                              tmp_path):
+    import shutil
+
+    from slimm_tpu_torch.engine import pipeline as tp
+
+    src = toy_dir.sam_path
+    if "-d" in extra:
+        src = str(tmp_path / "in")
+        os.makedirs(src)
+        shutil.copy(toy_dir.sam_path, os.path.join(src, "s1.sam"))
+        write_sam(src, _duplicate_heavy(), name="s2.sam")
+    outs = {}
+    for tag, main, dev in (("jax", jax_main, []),
+                           ("torch", tcli.main, ["--device", "cpu"])):
+        out = str(tmp_path / tag) + "/"
+        os.makedirs(out)
+        tp.reset_path_counts()
+        assert main(["profile", *dev, "--stream", "600", *extra, "-o", out,
+                     built_db, src]) == 0
+        outs[tag] = out
+    assert tp.path_counts["stream_files"] == (2 if "-d" in extra else 1)
+    names = sorted(os.listdir(outs["jax"]))
+    # one profile per input, and with -ro/-co four more reports
+    assert len(names) == (2 if "-d" in extra else 5 if "-ro" in extra else 1)
+    assert names == sorted(os.listdir(outs["torch"]))
+    for name in names:
+        assert filecmp.cmp(outs["jax"] + name, outs["torch"] + name,
+                           shallow=False), name
+
+
 def test_cli_directory_mode(built_db, toy_dir, tmp_path):
     import shutil
 
@@ -315,7 +367,6 @@ def test_cli_cuda_without_gpu_exits_1(built_db, toy_dir, tmp_path, capsys,
 
 
 @pytest.mark.parametrize("flags", [["--shards", "2"], ["--model-shards", "2"],
-                                   ["--stream", "600"],
                                    ["--trace-dir", "trace"]])
 def test_cli_refuses_options_not_yet_ported(flags, built_db, toy_dir,
                                             tmp_path, capsys):
