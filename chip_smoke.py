@@ -9,10 +9,16 @@ Phases, each timed; any failure raises and the script exits non-zero:
   build    the CUDA kernels of slimm_tpu_torch/csrc/ (nvcc, sm_90a) and the
            native SAM/BAM decoder (make -C native)
   kernels  each kernel against its plain PyTorch version on the card, on 8M
-           records at the profile's bin domains: bit-equal, both timed
+           records at the profile's bin domains (among them a model shard's
+           slice of the bins, most records outside it): bit-equal, both
+           timed
   core     fused_profile (emit_coverage=False, the default CLI path) on the
            bench workloads, 8M records x 50 contigs and 10M x 1000, on cuda
-           and on cpu: the packed stats vectors must be equal
+           and on cpu: the packed stats vectors must be equal; then the
+           sharded core (slimm_tpu_torch.parallel) on the card at (data,
+           model) = (2, 1), (2, 2), (1, 4) and (1, 4), (4, 2): packed
+           vectors equal to the unsharded cuda run's, pass A of every shard
+           without a host sync, the -ro/-co histograms equal at (2, 2)
   stream   the streamed paths on a 4M-record bench SAM (about 1.3 GB):
            the overlap path (profile_file's default at this size), the
            whole-file path, chunk streaming (v2 pieces, with and without the
@@ -22,19 +28,36 @@ Phases, each timed; any failure raises and the script exits non-zero:
            run are read, the abundance TSVs must be equal per bin width and
            to a whole-file run on the CPU; pass A of the pieces must run
            without a host sync (torch's sync debug mode "error"); file
-           seconds are the median of 3 beside a decode-only floor
+           seconds are the median of 3 beside a decode-only floor.  The
+           sharded runs of the same SAM at (data, model) = (2, 2), cuda:0
+           in every cell of the grid: profile_file, and chunk streaming
+           with the device cache on and at 0 bytes, TSVs equal to the
+           overlap run's; the routing of the pieces on the card is timed
+           with its one sync per piece, and a 2^19-record piece is routed
+           both on the host (numpy) and on the card: parts equal, both
+           timed
   cli      `python -m slimm_tpu_torch profile` on a toy SAM against the
            oracle (--no-device); then the profile CLI on a 1M-record bench
            SAM (which takes the overlap path) with the kernel launch and
            path counts reset and read around it, against the same command
-           with --device cpu
+           with --device cpu; `--shards 2`, which on a one-GPU machine must
+           exit 1 with the device count, and elsewhere equal the TSV
+  multi    processes over torch.distributed on the 1M-record SAM split by
+           read into one SAM per process: a one-process NCCL world on the
+           whole SAM and a two-process gloo world on cuda:0 tensors (NCCL
+           refuses two ranks on one GPU), each whole-file and streamed; the
+           TSV of every process equal to a one-process run's
 
-The line before the last is a JSON object describing each kernel; the last
-line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-The card's numbers come from this run alone.
+With several shards on one card, the sharded numbers measure the cost of
+routing and merging, not scale-out.  The line before the last is a JSON
+object describing each kernel, its launches summed over the path runs of
+every phase; the last line is {"ok": true, "device": {"platform": "gpu",
+"kind": ..., "count": ...}}.  The card's numbers come from this run alone.
 """
 
+import contextlib
 import copy
+import io
 import json
 import os
 import shutil
@@ -52,6 +75,32 @@ CORE_WORKLOADS = [(8_000_000, 50, 0), (10_000_000, 1000, 2)]
 CLI_RECORDS = 1_000_000
 STREAM_RECORDS = 4_000_000
 STREAM_CHUNK = 1 << 19
+# (data, model) grids of the sharded core, per contig count
+SHARDED_CORE = {50: [(2, 1), (2, 2), (1, 4)], 1000: [(1, 4), (4, 2)]}
+SHARDED_FILES = (2, 2)
+ROUTE_PIECE = 1 << 19
+ROUTE_REPS = 10
+CHILD_TIMEOUT = 300
+
+# kernel launches of the path runs (not of the kernel comparisons), summed
+# over the phases: each run resets the counts before it and adds them after
+PATH_LAUNCHES = {"slimm_hist1": 0, "slimm_hist2": 0}
+
+
+def add_launches(hist):
+    PATH_LAUNCHES["slimm_hist1"] += hist.hist1_launches
+    PATH_LAUNCHES["slimm_hist2"] += hist.hist2_launches
+    return hist.hist1_launches, hist.hist2_launches
+
+
+def grid_of(device, data, model):
+    """A (data, model) grid with `device` (cuda: cuda:0) in every cell."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", 0)
+    return [[device] * model for _ in range(data)]
 
 
 def log(msg):
@@ -103,6 +152,7 @@ def kernel_phase(torch, np, hist, cuda_time, shared_counters, device):
     """Each kernel against its plain version at the profile's domains, on
     `device`; returns one row per case."""
     import bench
+    from slimm_tpu_torch.parallel.runner import model_slices
 
     a50, b50, p50 = geometry(50, 0)
     a1k, b1k, p1k = geometry(1000, 2)
@@ -114,35 +164,49 @@ def kernel_phase(torch, np, hist, cuda_time, shared_counters, device):
                         w["lengths"][w["rid"]])
     workload_bins = (boff[w["rid"]] + center // np.uint32(150)).astype(np.int32)
 
-    # (name, kernel, domain, weight density, index source)
+    # (name, kernel, domain, weight density, index source, model shards):
+    # with model shards M, the kernel runs over model shard 1's slice of
+    # the domain, as pass A and the -ro/-co uniq_cov2 of a model-sharded
+    # profile do, with the records outside it weighted 0
     cases = [
-        ("passA_bins_50ctg", "hist2", a50, 0.9, "workload"),
-        ("passA_d0", "hist2", a50, 0.0, "uniform"),
-        ("passA_d0.9", "hist2", a50, 0.9, "uniform"),
-        ("passA_d1", "hist2", a50, 1.0, "uniform"),
-        ("passA_1000ctg", "hist2", a1k, 0.9, "uniform"),
-        ("passA_12.6M", "hist2", 12_600_000, 0.9, "uniform"),
-        ("hist2_shared", "hist2", shared_counters // 2, 0.9, "uniform"),
-        ("passB_taxa_50ctg", "hist1", b50, 0.9, "uniform"),
-        ("passB_taxa_1000ctg", "hist1", b1k, 0.9, "uniform"),
-        ("passB_pairs_50ctg", "hist1", p50, 0.9, "uniform"),
-        ("passB_pairs_1000ctg", "hist1", p1k, 0.9, "uniform"),
-        ("passB_cov2_50ctg", "hist1", a50 + b50 - 50, 0.9, "uniform"),
+        ("passA_bins_50ctg", "hist2", a50, 0.9, "workload", 1),
+        ("passA_d0", "hist2", a50, 0.0, "uniform", 1),
+        ("passA_d0.9", "hist2", a50, 0.9, "uniform", 1),
+        ("passA_d1", "hist2", a50, 1.0, "uniform", 1),
+        ("passA_1000ctg", "hist2", a1k, 0.9, "uniform", 1),
+        ("passA_12.6M", "hist2", 12_600_000, 0.9, "uniform", 1),
+        ("hist2_shared", "hist2", shared_counters // 2, 0.9, "uniform", 1),
+        ("passA_model2_50ctg", "hist2", a50, 0.9, "workload", 2),
+        ("passA_model4_1000ctg", "hist2", a1k, 0.9, "uniform", 4),
+        ("passB_taxa_50ctg", "hist1", b50, 0.9, "uniform", 1),
+        ("passB_taxa_1000ctg", "hist1", b1k, 0.9, "uniform", 1),
+        ("passB_pairs_50ctg", "hist1", p50, 0.9, "uniform", 1),
+        ("passB_pairs_1000ctg", "hist1", p1k, 0.9, "uniform", 1),
+        ("passB_cov2_50ctg", "hist1", a50 + b50 - 50, 0.9, "uniform", 1),
     ]
     rows = []
-    for name, kernel, n_bins, density, source in cases:
+    for name, kernel, n_bins, density, source, model in cases:
         if source == "workload":
             idx = workload_bins.copy()
         else:
             idx = rng.integers(0, n_bins, RECORDS).astype(np.int32)
         n = len(idx)
+        keep = np.ones(n, bool)
+        if model > 1:
+            lo, hi = model_slices(n_bins, model)[1]
+            idx -= lo
+            n_bins = hi - lo
+            keep = (idx >= 0) & (idx < n_bins)
         idx[:70_000] = n_bins // 3              # one bin with 70,000 hits
+        keep[:70_000] = True
         oor = rng.choice(n, 2_000, replace=False)
         idx[oor] = np.where(np.arange(2_000) % 2 == 0, -1 - oor % 100,
                             n_bins + oor % 100)  # dropped, weight or not
+        dropped = 1.0 - float(keep.mean())
         d_idx = torch.from_numpy(idx).to(device)
-        d_w1 = torch.from_numpy(rng.random(n) < density).to(device)
-        d_w2 = torch.from_numpy(rng.random(n) < 0.85 * density).to(device)
+        d_w1 = torch.from_numpy((rng.random(n) < density) & keep).to(device)
+        d_w2 = torch.from_numpy((rng.random(n) < 0.85 * density)
+                                & keep).to(device)
         if kernel == "hist2":
             run_k = lambda: hist.hist2(d_idx, d_w1, d_w2, n_bins)  # noqa: E731
             run_p = lambda: hist.hist2_plain(d_idx, d_w1, d_w2, n_bins)  # noqa: E731
@@ -161,10 +225,12 @@ def kernel_phase(torch, np, hist, cuda_time, shared_counters, device):
         variant = ("shared" if (2 if kernel == "hist2" else 1) * n_bins
                    <= shared_counters else "global")
         rows.append(dict(case=name, kernel=kernel, n_bins=n_bins,
-                         density=density, variant=variant, max_abs_err=err,
+                         density=density, model_shards=model,
+                         dropped=dropped, variant=variant, max_abs_err=err,
                          ms=ms, plain_ms=plain_ms))
         log(f"  {name:22s} {kernel} bins={n_bins:>10d} w={density:<4} "
-            f"{variant:6s} equal  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+            f"outside {dropped:.3f} {variant:6s} equal  kernel {ms:.4f} ms  "
+            f"plain {plain_ms:.4f} ms")
     return rows
 
 
@@ -199,7 +265,7 @@ def core_phase(torch, np, pipeline, cuda_time, hist, device):
             if dev == device:
                 hist.reset_launch_counts()
                 packed[dev] = core().cpu().numpy()
-                launches = (hist.hist1_launches, hist.hist2_launches)
+                launches = add_launches(hist)
                 require(launches[0] > 0 and launches[1] > 0,
                         f"core on {dev} launched (hist1, hist2) = {launches}")
                 secs = cuda_time(core, reps=5)
@@ -207,6 +273,11 @@ def core_phase(torch, np, pipeline, cuda_time, hist, device):
                     f"{dev}: median {secs:.6f} s, "
                     f"{len(read_id) / secs:.0f} records/s, "
                     f"launches hist1={launches[0]} hist2={launches[1]}")
+                sharded_core(torch, np, pipeline, cuda_time, hist, tables,
+                             (read_id, rid, pos),
+                             dict(dedup_window=dedup_window, k_steps=k_steps,
+                                  window=window),
+                             packed[dev], n_contigs, secs)
             else:
                 c0 = time.perf_counter()
                 packed[dev] = core().numpy()
@@ -225,6 +296,69 @@ def core_phase(torch, np, pipeline, cuda_time, hist, device):
         phase(f"core {n} x {n_contigs}", t0)
 
 
+def sharded_core(torch, np, pipeline, cuda_time, hist, tables, records, plan,
+                 want, n_contigs, one_secs):
+    """The core over (data, model) grids of tables' device, records routed
+    and uploaded once per grid: packed vectors equal to `want`, the
+    unsharded run's; pass A of every shard under sync debug mode "error"."""
+    from slimm_tpu_torch.parallel import ShardedRunner
+
+    device = tables.device
+    n = len(records[0])
+    for data, model in SHARDED_CORE[n_contigs]:
+        grid = ShardedRunner(devices=grid_of(device, data, model)).grid(
+            lambda dev: tables)
+        c0 = time.perf_counter()
+        shards = grid.shards(*records)
+        torch.cuda.synchronize()
+        route_secs = time.perf_counter() - c0
+        hist.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            a = pipeline._pass_a_shards(grid, shards, **plan)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        got = pipeline._core_after_a(grid, *a[:3], a[3].__getitem__,
+                                     emit_coverage=False)["packed"]
+        got = got.cpu().numpy()
+        launches = add_launches(hist)
+        require(launches[0] > 0 and launches[1] > 0,
+                f"sharded core ({data}, {model}) launched (hist1, hist2) = "
+                f"{launches}")
+        require(np.array_equal(got, want),
+                f"sharded core ({data}, {model}) at {n} x {n_contigs}: "
+                "packed vector differs from the unsharded run's")
+
+        def core():
+            return pipeline.fused_profile_shards(
+                grid, shards, emit_coverage=False, **plan)["packed"]
+
+        secs = cuda_time(core, reps=5)
+        log(f"  sharded core {n} x {n_contigs} (data, model) = ({data}, "
+            f"{model}) on {device}: median {secs * 1e3:.3f} ms (unsharded "
+            f"{one_secs * 1e3:.3f} ms), upload + route {route_secs:.3f} s, "
+            f"packed equal, pass A without a host sync, launches "
+            f"hist1={launches[0]} hist2={launches[1]}")
+    if n_contigs != 50:
+        return
+    # -ro/-co: the concatenated slices equal the one-device histograms
+    grid = ShardedRunner(devices=grid_of(device, 2, 2)).grid(
+        lambda dev: tables)
+    shards = grid.shards(*records)
+    hist.reset_launch_counts()
+    got = pipeline.fused_profile_shards(grid, shards, emit_coverage=True,
+                                        **plan)
+    add_launches(hist)
+    one = pipeline.fused_profile(
+        *(torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(device)
+          for x in records), tables, emit_coverage=True, **plan)
+    for key in ("packed", "cov", "uniq_cov", "uniq_cov2"):
+        require(torch.equal(got[key], one[key]),
+                f"sharded core (2, 2) with -ro/-co: {key} differs")
+    log(f"  sharded core {n} x {n_contigs} (2, 2) with -ro/-co: packed, cov, "
+        "uniq_cov, uniq_cov2 equal to the unsharded run's")
+
+
 def stream_phase(torch, np, pipeline, hist, tmp, device, smi):
     """The streamed paths on `device` against each other and against the
     whole-file path on the CPU, on one 4M-record SAM.  On a GPU, pass A of
@@ -234,6 +368,9 @@ def stream_phase(torch, np, pipeline, hist, tmp, device, smi):
     from slimm_tpu.config import EngineOptions, ProfileOptions
     from slimm_tpu.io import native
     from slimm_tpu_torch.engine.reports import write_abundance
+
+    import slimm_tpu_torch.parallel.runner as runner_mod
+    from slimm_tpu_torch.parallel import ShardedRunner
 
     require(native.available(), "stream phase: the native decoder is not "
             "built, and neither streamed path exists without it")
@@ -269,7 +406,7 @@ def stream_phase(torch, np, pipeline, hist, tmp, device, smi):
             sync()
             times.append(time.perf_counter() - c0)
             counts = {k: v for k, v in pipeline.path_counts.items() if v}
-            launches = (hist.hist1_launches, hist.hist2_launches)
+            launches = add_launches(hist)
             for key, least in want:
                 require(pipeline.path_counts[key] >= least,
                         f"{label}: {key} = {pipeline.path_counts[key]}, "
@@ -291,18 +428,51 @@ def stream_phase(torch, np, pipeline, hist, tmp, device, smi):
             torch.cuda.synchronize()
 
     pass_a_pieces = pipeline._pass_a_pieces
+    pass_a_shards = pipeline._pass_a_shards
 
-    def pass_a_without_sync(*args, **kw):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return pass_a_pieces(*args, **kw)
-        finally:
+    def without_sync(fn):
+        def run_fn(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return run_fn
+
+    # the routing of the sharded runs' pieces on the card (parallel/
+    # runner.py), timed with its sync; its one sync per piece (the shard
+    # sizes) is by design, so it alone runs outside sync debug mode "error"
+    route_piece = runner_mod.route_piece
+    route_secs = []
+
+    def timed_route(*args, **kw):
+        mode = torch.cuda.get_sync_debug_mode() if device != "cpu" else 0
+        if mode:
             torch.cuda.set_sync_debug_mode("default")
+        c0 = time.perf_counter()
+        try:
+            return route_piece(*args, **kw)
+        finally:
+            route_secs[-1] += time.perf_counter() - c0
+            if mode:
+                torch.cuda.set_sync_debug_mode(mode)
+
+    def sharded(fn, **kw):
+        data, model = SHARDED_FILES
+
+        def run_fn(options, db, path, device, engine):
+            route_secs.append(0.0)
+            return fn(options, db, path, engine=engine, **kw,
+                      sharded_runner=ShardedRunner(
+                          devices=grid_of(device, data, model)))
+        return run_fn
 
     stream = pipeline.profile_file_streaming
     whole = pipeline.profile_file
     if device != "cpu":
-        pipeline._pass_a_pieces = pass_a_without_sync
+        pipeline._pass_a_pieces = without_sync(pass_a_pieces)
+        pipeline._pass_a_shards = without_sync(pass_a_shards)
+    runner_mod.route_piece = timed_route
     try:
         run("overlap", whole, [("overlap_files", 1), ("overlap_pieces", 2)],
             reps=3)
@@ -323,11 +493,29 @@ def stream_phase(torch, np, pipeline, hist, tmp, device, smi):
             stream_chunk=STREAM_CHUNK)
         run("overlap_w20", whole, [("overlap_fallback_bins_past_uint16", 1)],
             bin_width=20)
+        shard_runs = [
+            ("sharded_whole_2x2", sharded(whole), [("sharded_files", 1)], 3,
+             {}),
+            ("sharded_stream_2x2", sharded(stream),
+             [("sharded_files", 1), ("stream_files", 1),
+              ("stream_chunks_v2", 2)], 3, dict(stream_chunk=STREAM_CHUNK)),
+            ("sharded_stream_2x2_no_cache", sharded(stream),
+             [("stream_chunks_v2", 2), ("pass_b_reuploads", 4)], 1,
+             dict(stream_chunk=STREAM_CHUNK, stream_device_cache_bytes=0))]
+        for label, fn, want, reps, knobs in shard_runs:
+            del route_secs[:]
+            run(label, fn, want, reps=reps, **knobs)
+            log(f"    routing of the pieces on the card, sync included: "
+                f"{' / '.join(f'{x:.3f}' for x in route_secs)} s")
+            secs[label + "_route"] = float(np.median(route_secs))
     finally:
         pipeline._pass_a_pieces = pass_a_pieces
+        pipeline._pass_a_shards = pass_a_shards
+        runner_mod.route_piece = route_piece
     if device != "cpu":
-        log("  pass A of every piece ran under sync debug mode \"error\": "
-            "no host sync")
+        log("  pass A of every piece and shard ran under sync debug mode "
+            "\"error\": no host sync but the routing's shard sizes")
+    secs.update(route_bench(torch, np, pipeline, runner_mod, device))
 
     for width in {bw for bw, _ in tsv.values()}:
         runs = {k: v for k, (bw, v) in tsv.items() if bw == width}
@@ -354,10 +542,89 @@ def stream_phase(torch, np, pipeline, hist, tmp, device, smi):
     log(f"  {STREAM_RECORDS}-record SAM, file seconds (median of 3, "
         f"{device}): overlap {secs['overlap']:.3f}, whole-file "
         f"{secs['whole_file']:.3f}, stream {secs['stream_v2']:.3f}, "
-        f"decode-only floor {secs['decode_floor']:.3f}")
+        f"decode-only floor {secs['decode_floor']:.3f}; sharded {SHARDED_FILES} "
+        f"on one card: whole-file {secs['sharded_whole_2x2']:.3f} (routing "
+        f"{secs['sharded_whole_2x2_route']:.3f}), stream "
+        f"{secs['sharded_stream_2x2']:.3f} (routing "
+        f"{secs['sharded_stream_2x2_route']:.3f})")
     os.remove(sam)
     phase("stream", t0)
     return secs
+
+
+def host_route(np, arrays, n, D):
+    """The plain routing of a v2 piece on the host, in numpy: the hash of
+    slimm_tpu/parallel/mesh.py's route_shard over the piece-local read
+    index, a stable argsort, each shard's boundary bits packed again."""
+    bnd, rid, lbin = arrays
+    bits = np.unpackbits(bnd, count=n, bitorder="little")
+    read = np.cumsum(bits, dtype=np.int64) - 1
+    h = (read.astype(np.uint64) * np.uint64(0x9E3779B97F4A7C15)) \
+        >> np.uint64(17)
+    shard = (h % np.uint64(D)).astype(np.uint8)
+    order = np.argsort(shard, kind="stable")
+    ends = np.cumsum(np.bincount(shard, minlength=D))[:-1]
+    return [(np.packbits(bits[sel], bitorder="little"), rid[sel], lbin[sel])
+            for sel in np.split(order, ends)]
+
+
+def route_bench(torch, np, pipeline, runner_mod, device):
+    """Routing one 2^19-record v2 piece over D data shards: on the host
+    (host_route, then a pinned upload of each part) against the port's
+    (a pinned upload of the piece, route_piece on the card); the parts
+    must be equal.  Each way timed to the end of its work on the card
+    (sync included), in turns host, card, card, host of ROUTE_REPS runs;
+    returns the median of each turn."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(7)
+    runs = np.where(rng.random(ROUTE_PIECE) < 0.9, 1,
+                    rng.integers(2, 4, ROUTE_PIECE))
+    runs = runs[:np.searchsorted(np.cumsum(runs), ROUTE_PIECE)]
+    n = int(runs.sum())
+    bits = np.zeros(n, np.uint8)
+    bits[np.cumsum(runs) - runs] = 1
+    piece = (np.packbits(bits, bitorder="little"),
+             rng.integers(0, 50, n).astype(np.uint8),
+             rng.integers(-2**15, 2**15, n).astype(np.int16))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def on_host(D):
+        out = [pipeline._upload(p, dev) for p in host_route(np, piece, n, D)]
+        sync()
+        return out
+
+    def on_card(D):
+        out = [p for p, _ in runner_mod.route_piece(
+            "v2", pipeline._upload(piece, dev), n, D)]
+        sync()
+        return out
+
+    result = {}
+    for D in (2, 4):
+        for h, c in zip(on_host(D), on_card(D)):
+            for a, b in zip(h, c):
+                require(torch.equal(a.cpu(), b.cpu()),
+                        f"routing a piece over {D} shards: the card's parts "
+                        "differ from the host's")
+        turns = []
+        for fn in (on_host, on_card, on_card, on_host):
+            times = []
+            for _ in range(ROUTE_REPS):
+                c0 = time.perf_counter()
+                fn(D)
+                times.append(time.perf_counter() - c0)
+            turns.append(float(np.median(times)))
+        result[f"route_host_D{D}"] = (turns[0], turns[3])
+        result[f"route_card_D{D}"] = (turns[1], turns[2])
+        log(f"  routing a {n}-record v2 piece over {D} data shards, parts "
+            f"equal; median of {ROUTE_REPS} per turn (host, card, card, "
+            f"host): host + uploads {turns[0] * 1e3:.3f} / "
+            f"{turns[3] * 1e3:.3f} ms, upload + card "
+            f"{turns[1] * 1e3:.3f} / {turns[2] * 1e3:.3f} ms")
+    return result
 
 
 def cli_phase(hist, tmp, device_args):
@@ -402,8 +669,7 @@ def cli_phase(hist, tmp, device_args):
     c0 = time.perf_counter()
     rc = cli.main(["profile", *device_args, "-o", d + "/gpu/", db, sam])
     cuda_secs = time.perf_counter() - c0
-    launches = {"slimm_hist1": hist.hist1_launches,
-                "slimm_hist2": hist.hist2_launches}
+    launches = dict(zip(("slimm_hist1", "slimm_hist2"), add_launches(hist)))
     pieces = pipeline.path_counts["overlap_pieces"]
     require(rc == 0, f"profile exited {rc}")
     require(all(v > 0 for v in launches.values()),
@@ -422,7 +688,165 @@ def cli_phase(hist, tmp, device_args):
         f"cuda {cuda_secs:.3f} s (in process), cpu {cpu_secs:.3f} s "
         f"(subprocess); launches {launches}, overlap pieces {pieces}")
     phase("cli 1M records", t0)
-    return launches
+
+    # --shards 2: one GPU is one device too few (make_mesh's rule)
+    import torch
+
+    t0 = time.perf_counter()
+    err = io.StringIO()
+    hist.reset_launch_counts()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["profile", *device_args, "--shards", "2", "-o",
+                       d + "/shards2/", db, sam])
+    add_launches(hist)
+    if torch.cuda.device_count() < 2:
+        want = (f"requested 2 devices (2 data x 1 model shards), have "
+                f"{torch.cuda.device_count()} CUDA devices")
+        require(rc == 1 and want in err.getvalue()
+                and not os.path.exists(d + "/shards2/"),
+                f"profile --shards 2 on one GPU: exit {rc}, stderr "
+                f"{err.getvalue()[-500:]!r}")
+        log(f"  profile --shards 2 on {torch.cuda.device_count()} GPU: exit 1, "
+            f"{want!r}")
+    else:
+        require(rc == 0 and open(d + "/shards2/bench_profile.tsv", "rb").read()
+                == got, "profile --shards 2: TSV differs from the unsharded")
+        log(f"  profile --shards 2 on {torch.cuda.device_count()} GPUs: TSV "
+            "equal to the unsharded run's")
+    phase("cli --shards 2", t0)
+    return launches, (w, db, sam)
+
+
+def multi_child(backend, init_method, world, rank, db_path, sam, out_dir):
+    """One process of a torch.distributed world: `sam` profiled through
+    MultiHostRunner whole-file and streamed, each TSV written under
+    out_dir; prints one `MULTI {json}` line with seconds and launches."""
+    world, rank = int(world), int(rank)
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    from slimm_tpu.config import EngineOptions, ProfileOptions
+    from slimm_tpu.database import SlimmDatabase
+    from slimm_tpu_torch.engine import pipeline
+    from slimm_tpu_torch.engine.reports import write_abundance
+    from slimm_tpu_torch.ops import hist
+    from slimm_tpu_torch.parallel import MultiHostRunner, initialize
+
+    initialize(backend, init_method, world, rank)
+    try:
+        # under NCCL the process's own GPU; gloo is given cuda:0 tensors
+        runner = (MultiHostRunner() if backend == "nccl"
+                  else MultiHostRunner(devices=["cuda:0"]))
+        require(runner.distributed and dist.get_backend() == backend
+                and runner.devices == [[torch.device("cuda", 0)]],
+                f"rank {rank}: {dist.get_backend()} on {runner.devices}")
+        db = SlimmDatabase.load(db_path)
+        report = {}
+        for label, fn, kw in (
+                ("whole", pipeline.profile_file, {}),
+                ("stream", pipeline.profile_file_streaming,
+                 dict(chunk_targets=STREAM_CHUNK))):
+            hist.reset_launch_counts()
+            pipeline.reset_path_counts()
+            c0 = time.perf_counter()
+            st = fn(ProfileOptions(), copy.deepcopy(db), sam,
+                    engine=EngineOptions(fetch_coverage=False,
+                                         phase_log=False),
+                    sharded_runner=runner, **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - c0
+            write_abundance(st, os.path.join(out_dir, label) + "/", sam)
+            report[label] = dict(
+                secs=secs, hist1=hist.hist1_launches,
+                hist2=hist.hist2_launches,
+                paths={k: v for k, v in pipeline.path_counts.items() if v})
+        print("MULTI " + json.dumps(report), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multi_phase(np, pipeline, tmp, bench_files):
+    """A one-process NCCL world on the whole SAM and a two-process gloo
+    world on its halves (split by read, in order of first appearance, as
+    tests/_mp_child.py splits), started together; every process's TSVs
+    equal the one-process run's."""
+    import bench
+    from slimm_tpu.config import EngineOptions, ProfileOptions
+    from slimm_tpu.database import SlimmDatabase
+    from slimm_tpu_torch.engine.reports import write_abundance
+
+    t0 = time.perf_counter()
+    w, db_path, sam = bench_files
+    d = os.path.join(tmp, "multi")
+    os.makedirs(d)
+    _, first, inv = np.unique(w["read_id"], return_index=True,
+                              return_inverse=True)
+    order = np.argsort(np.argsort(first))[inv]
+    halves = []
+    for r in range(2):
+        sel = order % 2 == r
+        halves.append(os.path.join(d, f"rank{r}.sam"))
+        bench.write_bench_sam(halves[-1], dict(
+            w, read_id=w["read_id"][sel], rid=w["rid"][sel],
+            pos=w["pos"][sel]), 50)
+    st = pipeline.profile_file(
+        ProfileOptions(), SlimmDatabase.load(db_path), sam, device="cuda",
+        engine=EngineOptions(fetch_coverage=False, phase_log=False))
+    write_abundance(st, os.path.join(d, "one") + "/", sam)
+    want = open(os.path.join(d, "one", "bench_profile.tsv"), "rb").read()
+
+    nccl, gloo = (f"tcp://127.0.0.1:{_free_port()}" for _ in range(2))
+    jobs = [("nccl", nccl, 1, 0, sam)] + [
+        ("gloo", gloo, 2, r, halves[r]) for r in range(2)]
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "raise SystemExit(chip_smoke.multi_child(*sys.argv[2:]))")
+    procs = []
+    try:
+        for backend, init, world, rank, path in jobs:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, ROOT, backend, init, str(world),
+                 str(rank), db_path, path,
+                 os.path.join(d, f"{backend}{world}_rank{rank}")],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        outs = [p.communicate(timeout=CHILD_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for (backend, _, world, rank, _), p, out in zip(jobs, procs, outs):
+        tag = f"{backend} world {world} rank {rank}"
+        require(p.returncode == 0, f"{tag} exited {p.returncode}:\n"
+                f"{out[-3000:]}")
+        report = json.loads(next(line[6:] for line in out.splitlines()
+                                 if line.startswith("MULTI ")))
+        for label in ("whole", "stream"):
+            r = report[label]
+            require(r["hist1"] > 0 and r["hist2"] > 0,
+                    f"{tag} {label} launched (hist1, hist2) = "
+                    f"({r['hist1']}, {r['hist2']})")
+            PATH_LAUNCHES["slimm_hist1"] += r["hist1"]
+            PATH_LAUNCHES["slimm_hist2"] += r["hist2"]
+            out_dir = os.path.join(d, f"{backend}{world}_rank{rank}", label)
+            tsv = os.listdir(out_dir)
+            require(len(tsv) == 1 and open(os.path.join(out_dir, tsv[0]),
+                                           "rb").read() == want,
+                    f"{tag} {label}: TSV differs from the one-process run's")
+            log(f"  {tag} {label}: TSV equal ({len(want)} bytes), "
+                f"{r['secs']:.3f} s, launches hist1={r['hist1']} "
+                f"hist2={r['hist2']}, counts {r['paths']}")
+    phase("multi", t0)
 
 
 def main() -> int:
@@ -474,9 +898,12 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="slimm_chip_smoke_")
     try:
         stream_phase(torch, np, pipeline, hist, tmp, "cuda", smi[0])
-        launches = cli_phase(hist, tmp, [])
+        main_launches, bench_files = cli_phase(hist, tmp, [])
+        multi_phase(np, pipeline, tmp, bench_files)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  launches of the CLI's main-path run {main_launches}; of every "
+        f"path run {PATH_LAUNCHES}")
 
     main_case = {"slimm_hist2": "passA_bins_50ctg",
                  "slimm_hist1": "passB_taxa_50ctg"}
@@ -488,7 +915,7 @@ def main() -> int:
         row = next(r for r in rows if r["case"] == main_case[name])
         kernels.append(dict(
             name=name, route="cuda", source="slimm_tpu_torch/csrc/hist.cu",
-            replaces=replaces[name], launches=launches[name],
+            replaces=replaces[name], launches=PATH_LAUNCHES[name],
             max_abs_err=max(r["max_abs_err"] for r in rows
                             if r["kernel"] == kind),
             ms=row["ms"], plain_ms=row["plain_ms"]))

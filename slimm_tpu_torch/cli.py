@@ -7,9 +7,12 @@
 
 A missing GPU under `--device cuda` is an error, never a silent run on the
 CPU.  `--stream N` profiles each file by chunk streaming; files of 64 MB or
-more take the overlap path by default.  The options of slimm_tpu's parser
-that the port does not have yet (`--shards`/`--model-shards` above 1,
-`--trace-dir`) are refused.
+more take the overlap path by default.  `--shards D` / `--model-shards M`
+above 1 profile over a (data x model) grid of devices
+(slimm_tpu_torch.parallel): cuda:0 .. cuda:D*M-1, more than the host has
+being an error, or the CPU D*M times over with `--device cpu`.  The option
+of slimm_tpu's parser that the port does not have yet (`--trace-dir`) is
+refused.
 """
 
 from __future__ import annotations
@@ -29,10 +32,6 @@ from . import __version__
 
 def _not_ported(args) -> str | None:
     """The first given option that belongs to a later part of the port."""
-    if args.shards is not None and args.shards > 1:
-        return "--shards"
-    if args.model_shards > 1:
-        return "--model-shards"
     if args.trace_dir is not None:
         return "--trace-dir"
     return None
@@ -69,6 +68,15 @@ def cmd_profile(args) -> int:
         print("[ERROR] --device cuda: no CUDA device is available "
               "(run with --device cpu to profile on the CPU)", file=sys.stderr)
         return 1
+
+    runner = None
+    if not args.no_device and ((args.shards is not None and args.shards > 1)
+                               or args.model_shards > 1):
+        # slimm_tpu/cli.py:184-190; a grid past the device count raises
+        from .parallel import ShardedRunner
+        runner = ShardedRunner(num_shards=args.shards,
+                               model_shards=args.model_shards,
+                               device=args.device)
 
     from slimm_tpu.database import SlimmDatabase
     from slimm_tpu.io import AlignmentFile, collect_bam_files
@@ -114,11 +122,14 @@ def cmd_profile(args) -> int:
                                            af.contig_lengths.tolist())))
             state = prof.run(af.raw_records())
         elif engine.stream_chunk:
-            state = profile_file_streaming(per_file_options, db, path,
-                                           device=device, engine=engine)
+            state = profile_file_streaming(
+                per_file_options, db, path,
+                device=None if runner else device, engine=engine,
+                sharded_runner=runner)
         else:
-            state = profile_file(per_file_options, db, path, device=device,
-                                 engine=engine)
+            state = profile_file(per_file_options, db, path,
+                                 device=None if runner else device,
+                                 engine=engine, sharded_runner=runner)
         total_hits += state.hits_count
         if state.hits_count == 0:
             continue

@@ -31,6 +31,11 @@ bins, each cut to the piece's valid records (no padding).  v1 chunks (bin
 tables past uint16) upload their int32 (read_id, rid, pos) arrays as they
 are: `pack_records_compact` (pipeline.py:962-978) was a format for the TPU
 host's slow host-to-device link, and it costs a host pass per chunk.
+
+Every path runs over a `Grid` of devices: one device is the 1 x 1 grid;
+slimm_tpu_torch.parallel builds larger ones (data shards over reads, model
+shards over the bin axis, processes over torch.distributed), and
+`_core_after_a` merges between its stages with integer sums.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ import os
 import queue
 import sys
 import threading
+from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import torch
@@ -63,15 +70,18 @@ _N_SCALARS = 8
 # bins stream v1 chunks, and the overlap path gives way (pipeline.py:79)
 V2_MAX_BIN = int(np.iinfo(np.uint16).max)
 
-# Which streamed paths ran: files and pieces of the overlap path, why it
-# gave way to the whole-file path, files and chunks (v2, v1) of chunk
-# streaming, and pieces that pass B uploaded again from host copies.
+# Which paths ran: files and pieces of the overlap path, why it gave way to
+# the whole-file path, files and chunks (v2, v1) of chunk streaming and why
+# it gave way, pieces that pass B uploaded again from host copies, and
+# files profiled through a sharded runner (slimm_tpu_torch.parallel).
 path_counts = dict.fromkeys((
     "overlap_files", "overlap_pieces", "overlap_fallback_no_native",
     "overlap_fallback_open", "overlap_fallback_bins_past_uint16",
     "overlap_fallback_overflow", "overlap_fallback_not_grouped",
     "stream_files", "stream_chunks_v2", "stream_chunks_v1",
-    "pass_b_reuploads"), 0)
+    "stream_fallback_no_native", "stream_fallback_open",
+    "stream_fallback_not_grouped", "stream_fallback_overflow",
+    "pass_b_reuploads", "sharded_files"), 0)
 
 
 def reset_path_counts():
@@ -166,11 +176,13 @@ def _center_gbin(rid, pos, t: DeviceTables):
 
 
 def _pass_a_local(read_id, rid, pos, t: DeviceTables, *, dedup_window,
-                  k_steps, window, t_gbin=None):
+                  k_steps, window, t_gbin=None, bin_lo=0, hist_bins=None):
     """Grouped records -> dedup mask, global bins, uniqueness, coverage.
 
     t_gbin, when given, holds the records' global bins already (v2 pieces
-    carry the decoder's local bin) and pos is not read."""
+    carry the decoder's local bin) and pos is not read.  With hist_bins, the
+    histograms cover the model shard's bins [bin_lo, bin_lo + hist_bins)
+    only: records outside them carry weight 0 (pipeline.py:378-386)."""
     valid = read_id >= 0
     if t_gbin is None:
         t_gbin = _center_gbin(rid, pos, t)
@@ -190,7 +202,13 @@ def _pass_a_local(read_id, rid, pos, t: DeviceTables, *, dedup_window,
                                 k_steps=k_steps, window=window)
     t_uniq = nondup & (total == 1)
     uniq_matches = _count(end_mask & (cnt_end == 1))
-    cov, uniq_cov = hist2(t_gbin, nondup, t_uniq, t.n_bins)
+    if hist_bins is None:
+        cov, uniq_cov = hist2(t_gbin, nondup, t_uniq, t.n_bins)
+    else:
+        idx = t_gbin - bin_lo
+        in_range = (idx >= 0) & (idx < hist_bins)
+        cov, uniq_cov = hist2(idx, nondup & in_range, t_uniq & in_range,
+                              hist_bins)
     return dict(t_gbin=t_gbin, nondup=nondup, cov=cov, uniq_cov=uniq_cov,
                 uniq_matches=uniq_matches)
 
@@ -200,11 +218,14 @@ def _pass_a_local(read_id, rid, pos, t: DeviceTables, *, dedup_window,
 # ---------------------------------------------------------------------------
 
 
-def _contig_sums_nz(values, t: DeviceTables):
-    """(per-contig sums, per-contig nonzero-bin counts) over the flat bin
-    axis, from exact int64 prefix sums at the contig boundaries."""
-    starts = t.bin_offset.to(torch.int64)
-    ends = t.bin_ends.to(torch.int64)
+def _contig_sums_nz(values, t: DeviceTables, lo=0):
+    """(per-contig sums, per-contig nonzero-bin counts) over the bins
+    [lo, lo + len(values)) of the flat bin axis, from exact int64 prefix
+    sums at the contig boundaries clipped to that slice (pipeline.py:700-710;
+    lo = 0 and the whole axis on one device)."""
+    hi = lo + values.shape[0]
+    starts = t.bin_offset.to(torch.int64).clamp(lo, hi) - lo
+    ends = t.bin_ends.to(torch.int64).clamp(lo, hi) - lo
     zero = values.new_zeros(1, dtype=torch.int64)
     cs = torch.cat([zero, torch.cumsum(values, 0, dtype=torch.int64)])
     cz = torch.cat([zero, torch.cumsum(values > 0, 0, dtype=torch.int64)])
@@ -238,8 +259,12 @@ def _cutoffs(rc, nzc, urc, nzu, t: DeviceTables):
 
 
 def _pass_b_local(read_id, rid, t_gbin, nondup, valid_mask, t: DeviceTables,
-                  *, k_steps, window, emit_coverage):
-    """Filtered re-dedup + vectorised LCA (slimm.hpp:351-392, 516-557)."""
+                  *, k_steps, window, emit_coverage, slices=None):
+    """Filtered re-dedup + vectorised LCA (slimm.hpp:351-392, 516-557).
+
+    With emit_coverage, `uniq_cov2` is a list of histograms: over the whole
+    bin axis, or with `slices` one per model shard's bins [lo, hi)
+    (pipeline.py:571-581).  Every other output is bin-independent."""
     C = t.n_contigs
     rid_c = rid.clamp(0, C - 1)
     tmask = nondup & valid_mask[rid_c]
@@ -294,12 +319,21 @@ def _pass_b_local(read_id, rid, t_gbin, nondup, valid_mask, t: DeviceTables,
     lca_clip = lca_end.clamp(0, t.n_dense - 1)
 
     out = {}
-    if emit_coverage:
+    if emit_coverage and slices is not None:
+        # model-sharded: a uniq_cov2 histogram per slice, and the LCA counts
+        # in a histogram of their own
+        out["uniq_cov2"] = []
+        for lo, hi in slices:
+            li = t_gbin - lo
+            in_range = (li >= 0) & (li < hi - lo)
+            out["uniq_cov2"].append(hist1(li, t_u2 & in_range, hi - lo))
+        out["taxon_counts"] = hist1(lca_clip, multi_end, t.n_dense)
+    elif emit_coverage:
         # one fused histogram: [0, B) uniq_cov2, [B, B + n_dense) LCA counts
         B = t.n_bins
         idx = torch.where(t_u2, t_gbin, B + lca_clip)
         combined = hist1(idx, t_u2 | multi_end, B + t.n_dense)
-        out["uniq_cov2"] = combined[:B]
+        out["uniq_cov2"] = [combined[:B]]
         out["taxon_counts"] = combined[B:]
     else:
         # [0, C) per-contig uniq2 counts, [C, C + n_dense) LCA counts
@@ -343,6 +377,101 @@ def _pack_bits_words(x):
 # ---------------------------------------------------------------------------
 
 
+@dataclass
+class Grid:
+    """Where one profile runs: `tables[d][m]` on the device of data shard d
+    and model shard m (one device: `Grid.single`).
+
+    slices[m] = (lo, hi), model shard m's bins, tile [0, n_bins).
+    split(fmt, arrays, n), when given, routes a piece's tensors on the
+    first device over the data shards by read (parallel/runner.py);
+    reduce(x), when given, sums a tensor across processes in place
+    (parallel/multihost.py).  The merges below call it on every rank in the
+    same order."""
+    tables: list
+    slices: list
+    split: Callable | None = None
+    reduce: Callable | None = None
+
+    @classmethod
+    def single(cls, t: DeviceTables) -> "Grid":
+        return cls([[t]], [(0, t.n_bins)])
+
+    @property
+    def D(self) -> int:
+        return len(self.tables)
+
+    @property
+    def M(self) -> int:
+        return len(self.slices)
+
+    @property
+    def home(self) -> torch.device:
+        """The first device: records are uploaded and routed there."""
+        return self.tables[0][0].device
+
+    def window(self, m) -> dict:
+        """pass A's bin window of model shard m (none on one model shard)."""
+        if self.M == 1:
+            return {}
+        lo, hi = self.slices[m]
+        return dict(bin_lo=lo, hist_bins=hi - lo)
+
+    def bins(self, m) -> int:
+        lo, hi = self.slices[m]
+        return hi - lo
+
+    def pieces(self, fmt, arrays, n):
+        """[(tensors of data shard d, its record count)] for d < D, from a
+        piece's tensors on the home device."""
+        if self.split is None:
+            return [(arrays, n)]
+        return self.split(fmt, arrays, n)
+
+    def place(self, d, part) -> list:
+        """Data shard d's tensors on the device of each of its model
+        shards, one copy per distinct device."""
+        on = {}
+        for t in self.tables[d]:
+            if t.device not in on:
+                on[t.device] = tuple(a.to(t.device, non_blocking=True)
+                                     for a in part)
+        return [on[t.device] for t in self.tables[d]]
+
+    def shards(self, read_id, rid, pos) -> list:
+        """Grouped host records of a whole file -> shards[d][m], int32
+        tensors of data shard d on tables[d][m]'s device (routed on the
+        home device)."""
+        arrays = tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                       .to(self.home) for a in (read_id, rid, pos))
+        return [self.place(d, part) for d, (part, _) in
+                enumerate(self.pieces("v1", arrays, len(arrays[0])))]
+
+    def merge(self, parts, m=0):
+        """Sum of the data shards' parts on model shard m's device (of data
+        shard 0), then across processes."""
+        dev = self.tables[0][m].device
+        out = parts[0].to(dev)
+        for x in parts[1:]:
+            out = out + x.to(dev)
+        if self.reduce is not None:
+            self.reduce(out)
+        return out
+
+    def merge_any(self, parts):
+        """OR of bool parts on the first device, then across processes (as
+        an int32 sum: exact at any process count)."""
+        dev = self.tables[0][0].device
+        out = parts[0].to(dev)
+        for x in parts[1:]:
+            out = out | x.to(dev)
+        if self.reduce is None:
+            return out
+        n = out.to(torch.int32)
+        self.reduce(n)
+        return n > 0
+
+
 def fused_profile(read_id, rid, pos, t: DeviceTables, *, dedup_window,
                   k_steps, window, emit_coverage=True):
     """The whole per-file profile on the device of the record tensors.
@@ -353,59 +482,145 @@ def fused_profile(read_id, rid, pos, t: DeviceTables, *, dedup_window,
     ucc<bitcast>, 0, 0, 0, 0], taxon_counts, bitpacked pair presence) and,
     when emit_coverage, the cov / uniq_cov / uniq_cov2 histograms
     (int32[n_bins]) that the -ro/-co reports need."""
-    a = _pass_a_local(read_id, rid, pos, t, dedup_window=dedup_window,
-                      k_steps=k_steps, window=window)
-    return _core_after_a(
-        a["cov"], a["uniq_cov"], a["uniq_matches"],
-        [(read_id, rid, a["t_gbin"], a["nondup"], k_steps, window)], t,
-        emit_coverage=emit_coverage)
+    return fused_profile_shards(Grid.single(t), [[(read_id, rid, pos)]],
+                                dedup_window=dedup_window, k_steps=k_steps,
+                                window=window, emit_coverage=emit_coverage)
 
 
-def _core_after_a(cov, uniq_cov, uniq_matches, pieces, t: DeviceTables, *,
+def fused_profile_shards(grid: Grid, shards, *, dedup_window, k_steps,
+                         window, emit_coverage=True):
+    """fused_profile over a grid: shards[d][m] = (read_id, rid, pos) of data
+    shard d on tables[d][m]'s device.  Pass A runs per (d, m) over model
+    shard m's bins (pipeline.py:657-671); pass B per data shard."""
+    cov, uniq_cov, uniq_matches, pieces = _pass_a_shards(
+        grid, shards, dedup_window=dedup_window, k_steps=k_steps,
+        window=window)
+    return _core_after_a(grid, cov, uniq_cov, uniq_matches,
+                         pieces.__getitem__, emit_coverage=emit_coverage)
+
+
+def _pass_a_shards(grid: Grid, shards, *, dedup_window, k_steps, window):
+    """Pass A of every (data, model) shard, enqueued without a host sync:
+    (cov[d][m], uniq_cov[d][m], uniq_matches[d], pass-B pieces[d])."""
+    cov, uniq_cov, uniq_matches, pieces = [], [], [], []
+    for d, row in enumerate(shards):
+        cov.append([])
+        uniq_cov.append([])
+        for m, (read_id, rid, pos) in enumerate(row):
+            a = _pass_a_local(read_id, rid, pos, grid.tables[d][m],
+                              dedup_window=dedup_window, k_steps=k_steps,
+                              window=window, **grid.window(m))
+            cov[d].append(a["cov"])
+            uniq_cov[d].append(a["uniq_cov"])
+            if m == 0:
+                uniq_matches.append(a["uniq_matches"])
+                pieces.append([(read_id, rid, a["t_gbin"], a["nondup"],
+                                k_steps, window)])
+    return cov, uniq_cov, uniq_matches, pieces
+
+
+def _core_after_a(grid: Grid, cov, uniq_cov, uniq_matches, pass_b_pieces, *,
                   emit_coverage):
-    """Everything after the pass-A histograms (pipeline.py:682-770): the
-    per-contig sums, the host cutoffs, pass B over `pieces` and the packed
-    vector.  `pieces` yields (read_id, rid, t_gbin, nondup, k_steps,
-    window) per group of whole reads: the file's records in one piece, or
-    the streamed pieces one by one."""
-    rc, nzc = _contig_sums_nz(cov, t)
-    urc, nzu = _contig_sums_nz(uniq_cov, t)
-    cc, ucc, valid_mask = _cutoffs(rc, nzc, urc, nzu, t)
-    b = _pass_b_acc(t, emit_coverage)
-    for read_id, rid, t_gbin, nondup, k_steps, window in pieces:
-        _pass_b_chunk(b, read_id, rid, t_gbin, nondup, valid_mask, t,
-                      k_steps=k_steps, window=window,
-                      emit_coverage=emit_coverage)
-    u2 = _contig_sums_nz(b["u2"], t)[0] if emit_coverage else b["u2"]
-    out = dict(packed=_pack(rc, urc, nzc, nzu, u2, valid_mask, uniq_matches,
-                            b["um2"], cc, ucc, b["taxon"], b["pair"]))
+    """Everything after the pass-A histograms (pipeline.py:682-770), in
+    stages that merge between them: the pass-A partials over the data
+    shards, the per-contig counters per model slice summed over the slices,
+    the host cutoffs (once), pass B per data shard, its merges, packing.
+
+    cov[d][m] / uniq_cov[d][m]: data shard d's histograms of model slice m
+    on tables[d][m]'s device; uniq_matches[d]; pass_b_pieces(d) yields
+    (read_id, rid, t_gbin, nondup, k_steps, window) per group of whole reads
+    of data shard d on tables[d][0]'s device: a shard's records in one
+    piece, or the streamed pieces one by one."""
+    D, M = grid.D, grid.M
+    t0 = grid.tables[0][0]
+    cov_m = [grid.merge([cov[d][m] for d in range(D)], m) for m in range(M)]
+    ucov_m = [grid.merge([uniq_cov[d][m] for d in range(D)], m)
+              for m in range(M)]
+    uniq_matches = grid.merge(uniq_matches)
+    # per-contig counters of the MERGED slices (occupancy does not commute
+    # with summation)
+    rc, nzc = _slice_sums(grid, cov_m)
+    urc, nzu = _slice_sums(grid, ucov_m)
+    cc, ucc, valid_mask = _cutoffs(rc, nzc, urc, nzu, t0)
+    slices = grid.slices if M > 1 else None
+    accs = []
+    for d in range(D):
+        t = grid.tables[d][0]
+        acc = _pass_b_acc(t, emit_coverage, slices)
+        valid_d = valid_mask.to(t.device)
+        for read_id, rid, t_gbin, nondup, k_steps, window in pass_b_pieces(d):
+            _pass_b_chunk(acc, read_id, rid, t_gbin, nondup, valid_d, t,
+                          k_steps=k_steps, window=window,
+                          emit_coverage=emit_coverage, slices=slices)
+        accs.append(acc)
+    # bin-independent pass-B outputs come once per data shard: merged over
+    # the data shards only (pipeline.py:744-749)
     if emit_coverage:
-        out.update(cov=cov, uniq_cov=uniq_cov, uniq_cov2=b["u2"])
+        u2_m = [grid.merge([a["u2"][m] for a in accs], m) for m in range(M)]
+        u2 = _slice_sums(grid, u2_m)[0]
+    else:
+        u2 = grid.merge([a["u2"] for a in accs])
+    taxon = grid.merge([a["taxon"] for a in accs])
+    uniq_matches2 = grid.merge([a["um2"] for a in accs])
+    pair = grid.merge_any([a["pair"] for a in accs])
+    out = dict(packed=_pack(rc, urc, nzc, nzu, u2, valid_mask, uniq_matches,
+                            uniq_matches2, cc, ucc, taxon, pair))
+    if emit_coverage:
+        out.update(cov=_concat(cov_m, t0), uniq_cov=_concat(ucov_m, t0),
+                   uniq_cov2=_concat(u2_m, t0))
     return out
 
 
-def _pass_b_acc(t: DeviceTables, emit_coverage):
-    """Zeroed pass-B accumulators: u2 (per bin with emit_coverage, else per
-    contig), taxon counts, uniq_matches2 and the pair presence."""
-    dev = t.bin_offset.device
+def _slice_sums(grid: Grid, parts):
+    """Per-contig (sums, nonzero counts) of merged slices parts[m], each on
+    its own device, summed over the slices on the first device."""
+    dev = grid.tables[0][0].device
+    sums = nz = None
+    for m, x in enumerate(parts):
+        s, z = _contig_sums_nz(x, grid.tables[0][m], grid.slices[m][0])
+        s, z = s.to(dev), z.to(dev)
+        sums, nz = (s, z) if sums is None else (sums + s, nz + z)
+    return sums, nz
+
+
+def _concat(parts, t: DeviceTables):
+    """The slices of one bin histogram as one int32[n_bins] on t's device."""
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([x.to(t.device) for x in parts])
+
+
+def _pass_b_acc(t: DeviceTables, emit_coverage, slices=None):
+    """Zeroed pass-B accumulators: u2 (with emit_coverage a list of bin
+    histograms, one per slice; else per contig), taxon counts,
+    uniq_matches2 and the pair presence."""
+    dev = t.device
 
     def zeros(n, dtype=torch.int32):
         return torch.zeros(n, dtype=dtype, device=dev)
 
-    return dict(u2=zeros(t.n_bins if emit_coverage else t.n_contigs),
-                taxon=zeros(t.n_dense), um2=zeros(()),
+    if emit_coverage:
+        u2 = [zeros(hi - lo) for lo, hi in (slices or [(0, t.n_bins)])]
+    else:
+        u2 = zeros(t.n_contigs)
+    return dict(u2=u2, taxon=zeros(t.n_dense), um2=zeros(()),
                 pair=zeros(_pair_domain(t), torch.bool))
 
 
 def _pass_b_chunk(acc, read_id, rid, t_gbin, nondup, valid_mask,
-                  t: DeviceTables, *, k_steps, window, emit_coverage):
+                  t: DeviceTables, *, k_steps, window, emit_coverage,
+                  slices=None):
     """Pass B of one piece of whole reads against the validity mask, added
     into `acc` in place (pipeline.py:1523-1552, where JAX donates the
     buffers); the pair presence is OR-ed."""
     b = _pass_b_local(read_id, rid, t_gbin, nondup, valid_mask, t,
                       k_steps=k_steps, window=window,
-                      emit_coverage=emit_coverage)
-    acc["u2"] += b["uniq_cov2"] if emit_coverage else b["u2_counts"]
+                      emit_coverage=emit_coverage, slices=slices)
+    if emit_coverage:
+        for u2, x in zip(acc["u2"], b["uniq_cov2"]):
+            u2 += x
+    else:
+        acc["u2"] += b["u2_counts"]
     acc["taxon"] += b["taxon_counts"]
     acc["um2"] += b["uniq_matches2"]
     acc["pair"] |= b["pair_levels"]
@@ -512,15 +727,20 @@ def plan_records(read_id, rid, pos, n_contigs, *, deduped=True,
 def profile_arrays(options: ProfileOptions, db: SlimmDatabase,
                    contig_names, contig_lengths,
                    read_id, rid, pos, n_reads: int, hits_count: int,
-                   avg_read_length: int, *, device,
+                   avg_read_length: int, *, device=None,
                    engine: EngineOptions | None = None,
-                   deduped: bool = True, max_targets: int = 0) -> ProfileState:
-    """Profile decoded record arrays on `device`.
+                   sharded_runner=None, deduped: bool = True,
+                   max_targets: int = 0) -> ProfileState:
+    """Profile decoded record arrays on `device`, or over the devices of
+    `sharded_runner` (slimm_tpu_torch.parallel), whose merges are exact.
 
     read_id/rid/pos: with deduped=True (decoder contract) one entry per
     distinct (read, contig) with the first hit's position, grouped by read;
-    with deduped=False raw multi-hit records in any order.  Fills the same
-    ProfileState as the scalar oracle."""
+    with deduped=False raw multi-hit records in any order.  n_reads and
+    hits_count are the file's totals (across processes: the global ones, on
+    every process).  Fills the same ProfileState as the scalar oracle."""
+    if (device is None) == (sharded_runner is None):
+        raise ValueError("give exactly one of device and sharded_runner")
     engine = engine or EngineOptions()
     timer = PhaseTimer(enabled=engine.phase_log)
     st = ProfileState(options=options, ac__taxid=db.ac__taxid,
@@ -544,16 +764,23 @@ def profile_arrays(options: ProfileOptions, db: SlimmDatabase,
     read_id, rid, pos, dedup_window, k_steps, window = plan_records(
         read_id, rid, pos, len(st.accessions), deduped=deduped,
         max_targets=max_targets)
-    tables = device_tables(st, dense, options, device)
-
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
-
-    out = fused_profile(dev(read_id), dev(rid), dev(pos), tables,
-                        dedup_window=dedup_window, k_steps=k_steps,
-                        window=window, emit_coverage=engine.fetch_coverage)
+    plan = dict(dedup_window=dedup_window, k_steps=k_steps, window=window,
+                emit_coverage=engine.fetch_coverage)
+    grid = _grid(device, sharded_runner,
+                 lambda dev: device_tables(st, dense, options, dev))
+    out = fused_profile_shards(grid, grid.shards(read_id, rid, pos), **plan)
     _finalize_state(st, out, dense, engine, options, timer)
     return st
+
+
+def _grid(device, runner, make_tables) -> Grid:
+    """The Grid of one profile: `device`'s alone, or `runner`'s grid
+    (counted in path_counts["sharded_files"]); make_tables(device) builds
+    the tables on a device."""
+    if runner is None:
+        return Grid.single(make_tables(device))
+    path_counts["sharded_files"] += 1
+    return runner.grid(make_tables)
 
 
 def _finalize_state(st, out, dense, engine, options, timer):
@@ -646,15 +873,19 @@ def open_alignment_file(path: str, engine: EngineOptions | None = None):
 
 
 def profile_file(options: ProfileOptions, db: SlimmDatabase, path: str, *,
-                 device, engine: EngineOptions | None = None) -> ProfileState:
-    """Decode one SAM/BAM file and profile it on `device`.
+                 device=None, engine: EngineOptions | None = None,
+                 sharded_runner=None) -> ProfileState:
+    """Decode one SAM/BAM file and profile it on `device`, or over the
+    devices of `sharded_runner`.
 
-    A file of at least `engine.overlap_min_bytes` takes the overlap path
-    (pipeline.py:1277-1288): pass A runs on each piece while the native
-    decoder goes on with the rest of the file.  Otherwise, or when that
-    path gives way, the file is decoded whole first."""
+    On one device, a file of at least `engine.overlap_min_bytes` takes the
+    overlap path (pipeline.py:1277-1288): pass A runs on each piece while
+    the native decoder goes on with the rest of the file.  Otherwise, or
+    when that path gives way, and always with a sharded_runner, the file is
+    decoded whole first."""
     engine = engine or EngineOptions()
-    if engine.use_native and engine.overlap_min_bytes > 0:
+    if (sharded_runner is None and engine.use_native
+            and engine.overlap_min_bytes > 0):
         try:
             big = os.path.getsize(path) >= engine.overlap_min_bytes
         except OSError:
@@ -666,11 +897,19 @@ def profile_file(options: ProfileOptions, db: SlimmDatabase, path: str, *,
                 return st
     af = open_alignment_file(path, engine)
     batch = af.load()
+    n_reads, hits_count = batch.n_reads, batch.hits_count
+    avg = batch.avg_read_length
+    if sharded_runner is not None:
+        # across processes each decodes its own file: the totals are the
+        # sums, and the average read length (hence bin_width) process 0's,
+        # which holds the head of the input
+        n_reads, hits_count = sharded_runner.sum_totals(n_reads, hits_count)
+        avg = sharded_runner.broadcast(avg)
     return profile_arrays(
         options, db, af.contig_names, af.contig_lengths,
         batch.read_id.astype(np.int32), batch.rid, batch.pos,
-        batch.n_reads, batch.hits_count, batch.avg_read_length,
-        device=device, engine=engine, max_targets=batch.max_targets)
+        n_reads, hits_count, avg, device=device, engine=engine,
+        sharded_runner=sharded_runner, max_targets=batch.max_targets)
 
 
 # ---------------------------------------------------------------------------
@@ -685,13 +924,18 @@ def profile_file(options: ProfileOptions, db: SlimmDatabase, path: str, *,
 # on the host) for pass B, which decodes it again.
 
 
+def _unpack_bits(bnd_packed, n):
+    """The first n bits (uint8 0/1) of numpy packbits' little bit order."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=bnd_packed.device)
+    return ((bnd_packed[:, None] >> shifts) & 1).reshape(-1)[:n]
+
+
 def _unpack_read_groups(bnd_packed, n_pad, n_valid):
     """Grouped read ids from a bitpacked boundary mask (pipeline.py:111-125;
     bit = first record of its read, numpy packbits little bit-order):
     cumsum(bits) - 1 over the first n_pad records, -1 from n_valid on."""
-    shifts = torch.arange(8, dtype=torch.uint8, device=bnd_packed.device)
-    bits = ((bnd_packed[:, None] >> shifts) & 1).reshape(-1)[:n_pad]
-    gid = torch.cumsum(bits, 0, dtype=torch.int32) - 1
+    gid = torch.cumsum(_unpack_bits(bnd_packed, n_pad), 0,
+                       dtype=torch.int32) - 1
     if n_valid < n_pad:
         gid[n_valid:] = -1
     return gid
@@ -706,13 +950,15 @@ def _v2_host(bnd, rid_p, bin_p, n):
 
 
 def _upload(arrays, device):
-    """Host arrays onto `device`.  On a GPU each goes through pinned memory
-    with a non_blocking copy, so the host does not wait for it; the pinned
-    block comes from PyTorch's caching host allocator, which keeps it until
-    its copy has run.  On the CPU the tensors share the arrays' memory."""
+    """Host arrays (numpy, or CPU tensors) onto `device`.  On a GPU each
+    goes through pinned memory with a non_blocking copy, so the host does
+    not wait for it; the pinned block comes from PyTorch's caching host
+    allocator, which keeps it until its copy has run.  On the CPU the
+    tensors share the arrays' memory."""
     out = []
     for a in arrays:
-        x = torch.from_numpy(np.ascontiguousarray(a))
+        x = (a if isinstance(a, torch.Tensor)
+             else torch.from_numpy(np.ascontiguousarray(a)))
         if device.type != "cpu":
             x = x.pin_memory().to(device, non_blocking=True)
         out.append(x)
@@ -738,44 +984,68 @@ _DECODE = {"v2": _decode_v2, "v1": _decode_v1}
 
 
 def piece_pass_a_acc(acc, read_id, rid, t_gbin, t: DeviceTables, *, k_steps,
-                     window):
+                     window, bin_lo=0, hist_bins=None):
     """Pass A over one piece (pipeline.py:879-902, 1467-1483), added into
     acc's cov, uniq_cov and uniq_matches in place.  The native stream
     decoder has deduped the targets, so dedup_window is 0; (k_steps,
-    window) is the piece's own plan."""
+    window) is the piece's own plan; bin_lo/hist_bins a model shard's bin
+    window, as in _pass_a_local."""
     a = _pass_a_local(read_id, rid, None, t, dedup_window=0, k_steps=k_steps,
-                      window=window, t_gbin=t_gbin)
+                      window=window, t_gbin=t_gbin, bin_lo=bin_lo,
+                      hist_bins=hist_bins)
     acc["cov"] += a["cov"]
     acc["uniq_cov"] += a["uniq_cov"]
     acc["uniq_matches"] += a["uniq_matches"]
 
 
-def _pass_a_pieces(next_piece, t: DeviceTables, *, budget, counter):
+def _pass_a_pieces(next_piece, grid: Grid, *, budget, counter):
     """Pass A over the pieces that next_piece() returns, until None.
 
-    Each piece is uploaded and its pass A enqueued while the decoder goes
-    on; nothing here waits for the device.  Uploaded pieces stay on the
-    device up to `budget` bytes (None: all), later ones as host copies
-    (pipeline.py:1741-1768).  Returns (pass-A accumulators, kept pieces)."""
-    dev = t.bin_offset.device
-    acc = dict(cov=torch.zeros(t.n_bins, dtype=torch.int32, device=dev),
-               uniq_cov=torch.zeros(t.n_bins, dtype=torch.int32, device=dev),
-               uniq_matches=torch.zeros((), dtype=torch.int32, device=dev))
-    kept = []
+    Each piece is uploaded to the grid's home device and, over several
+    data shards, routed there by read (the one host sync of a piece: the
+    shard sizes); each shard's part goes to the devices of its row and its
+    pass A is enqueued per model shard while the decoder goes on.  Every
+    (data, model) shard keeps its own accumulators, merged once after EOF
+    (parallel/streaming.py:17-24).  Parts stay on the device up to `budget`
+    bytes in all (None: all), later ones as host copies (pipeline.py:
+    1741-1768): the piece itself on one data shard, else a non_blocking
+    copy into pinned memory, which pass B reads after the cutoffs' sync on
+    the home device.  Returns (acc[d][m], kept[d])."""
+    def zeros(t, n):
+        return torch.zeros(n, dtype=torch.int32, device=t.device)
+
+    acc = [[dict(cov=zeros(t, grid.bins(m)), uniq_cov=zeros(t, grid.bins(m)),
+                 uniq_matches=zeros(t, ())) for m, t in enumerate(row)]
+           for row in grid.tables]
+    kept = [[] for _ in range(grid.D)]
     while (piece := next_piece()) is not None:
         fmt, host, n, k_steps, window = piece
         if n == 0:
             continue
-        arrays = _upload(host, dev)
-        nbytes = sum(a.nbytes for a in host)
-        on_device = budget is None or budget >= nbytes
-        if on_device and budget is not None:
-            budget -= nbytes
-        kept.append((fmt, arrays if on_device else host, on_device, n,
-                     k_steps, window))
-        read_id, rid, t_gbin = _DECODE[fmt](arrays, n, t)
-        piece_pass_a_acc(acc, read_id, rid, t_gbin, t, k_steps=k_steps,
-                         window=window)
+        arrays = _upload(host, grid.home)
+        for d, (part, n_d) in enumerate(grid.pieces(fmt, arrays, n)):
+            if n_d == 0:
+                continue
+            nbytes = sum(a.nbytes for a in part)
+            on_device = budget is None or budget >= nbytes
+            if on_device and budget is not None:
+                budget -= nbytes
+            row = grid.place(d, part)
+            decoded = {}     # per distinct device of the row
+            for m, t in enumerate(grid.tables[d]):
+                if t.device not in decoded:
+                    decoded[t.device] = _DECODE[fmt](row[m], n_d, t)
+                read_id, rid, t_gbin = decoded[t.device]
+                piece_pass_a_acc(acc[d][m], read_id, rid, t_gbin, t,
+                                 k_steps=k_steps, window=window,
+                                 **grid.window(m))
+            if on_device:
+                keep = row[0]
+            elif grid.D == 1:
+                keep = host
+            else:
+                keep = tuple(a.to("cpu", non_blocking=True) for a in part)
+            kept[d].append((fmt, keep, on_device, n_d, k_steps, window))
         path_counts[counter] += 1
     return acc, kept
 
@@ -792,9 +1062,14 @@ def _pass_b_pieces(kept, t: DeviceTables):
         yield read_id, rid, t_gbin, read_id >= 0, k_steps, window
 
 
-def _stream_totals(st, sr, path) -> int:
-    """The stream's totals into `st`, after its last piece; its hits."""
+def _stream_totals(st, sr, path, runner=None) -> int:
+    """The stream's totals into `st`, after its last piece; its hits.
+    Across processes the totals are summed first, so that every process
+    takes the same turn at `hits_count == 0` (parallel/streaming.py:
+    184-190)."""
     n_reads, hits_count, _ = sr.totals()
+    if runner is not None:
+        n_reads, hits_count = runner.sum_totals(n_reads, hits_count)
     warn = sr.warning()
     if warn:
         print(f"[WARNING] {path}: {warn}", file=sys.stderr)
@@ -805,10 +1080,13 @@ def _stream_totals(st, sr, path) -> int:
     return hits_count
 
 
-def _core_after_pieces(acc, kept, t, engine):
-    return _core_after_a(acc["cov"], acc["uniq_cov"], acc["uniq_matches"],
-                         _pass_b_pieces(kept, t), t,
-                         emit_coverage=engine.fetch_coverage)
+def _core_after_pieces(grid: Grid, acc, kept, engine):
+    return _core_after_a(
+        grid, [[a["cov"] for a in row] for row in acc],
+        [[a["uniq_cov"] for a in row] for row in acc],
+        [row[0]["uniq_matches"] for row in acc],
+        lambda d: _pass_b_pieces(kept[d], grid.tables[d][0]),
+        emit_coverage=engine.fetch_coverage)
 
 
 # copied from slimm_tpu/engine/pipeline.py:1597-1624
@@ -919,11 +1197,11 @@ def _profile_file_overlap(options: ProfileOptions, db: SlimmDatabase,
             est_targets = 0
         cap = max(cap, -(-est_targets // 56))
     n_s = -(-cap // 2048) * 2048
-    t = device_tables(st, dense, options, device)
+    grid = Grid.single(device_tables(st, dense, options, device))
 
     try:
-        acc, kept = _pass_a_pieces(_v2_pieces(sr, n_s, geom), t, budget=None,
-                                   counter="overlap_pieces")
+        acc, kept = _pass_a_pieces(_v2_pieces(sr, n_s, geom), grid,
+                                   budget=None, counter="overlap_pieces")
     except ValueError as e:
         if "not qname-grouped" not in str(e):
             raise
@@ -936,7 +1214,7 @@ def _profile_file_overlap(options: ProfileOptions, db: SlimmDatabase,
     if _stream_totals(st, sr, path) == 0:
         timer.lap()
         return st
-    out = _core_after_pieces(acc, kept, t, engine)
+    out = _core_after_pieces(grid, acc, kept, engine)
     return _finalize_state(st, out, dense, engine, options, timer)
 
 
@@ -969,33 +1247,53 @@ def _decode_ahead(sr, chunk_targets):
 
 
 def profile_file_streaming(options: ProfileOptions, db: SlimmDatabase,
-                           path: str, *, device,
+                           path: str, *, device=None,
                            engine: EngineOptions | None = None,
-                           chunk_targets: int | None = None) -> ProfileState:
+                           chunk_targets: int | None = None,
+                           sharded_runner=None) -> ProfileState:
     """Chunk-streaming profile of one SAM/BAM file (pipeline.py:1627-1826):
     the same result as profile_file, with the records on the device only
     up to `engine.stream_device_cache_bytes`.  v2 pieces while every
     contig's bins fit uint16, else v1 chunks.  Falls back to profile_file
     where the JAX package does: no native decoder, a file the stream
     reader cannot open, input that stops being qname-grouped partway, or
-    one read's targets past a v2 piece."""
+    one read's targets past a v2 piece; each cause is counted in
+    `path_counts`.  With a `sharded_runner` the pieces are routed over its
+    data shards and the bins split over its model shards; across processes
+    a fall back raises instead (each process would profile its own input
+    alone)."""
     engine = engine or EngineOptions()
     chunk_targets = chunk_targets or engine.stream_chunk or (4 << 20)
     timer = PhaseTimer(enabled=engine.phase_log)
-
     timer.start("Streaming alignment chunks ....................... ")
     from slimm_tpu.io import native
-    if not native.available():
-        return profile_file(options, db, path, device=device, engine=engine)
     bw0 = options.bin_width
+
+    def give_way(cause, th=None):
+        path_counts["stream_fallback_" + cause] += 1
+        if th is not None:
+            th.join()
+        if sharded_runner is not None and sharded_runner.distributed:
+            raise ValueError(f"{path}: streaming across processes cannot "
+                             f"fall back to the whole-file path ({cause})")
+        options.bin_width = bw0  # undo _stream_init's auto default
+        return profile_file(options, db, path, device=device, engine=engine,
+                            sharded_runner=sharded_runner)
+
+    if not native.available():
+        return give_way("no_native")
     try:
         sr = native.NativeStreamReader(path,
                                        hash_names=engine.hash_read_names)
     except ValueError:
-        return profile_file(options, db, path, device=device, engine=engine)
+        return give_way("open")
 
-    st, dense, geom = _stream_init(options, db, sr)
-    t = device_tables(st, dense, options, device)
+    avg = sr.avg_read_length
+    if sharded_runner is not None:
+        avg = sharded_runner.broadcast(avg)
+    st, dense, geom = _stream_init(options, db, sr, avg=avg)
+    grid = _grid(device, sharded_runner,
+                 lambda dev: device_tables(st, dense, options, dev))
     th = None
     if _max_bin(st) <= V2_MAX_BIN:
         next_piece = _v2_pieces(sr, _bucket(chunk_targets, engine.batch_pad),
@@ -1013,28 +1311,24 @@ def profile_file_streaming(options: ProfileOptions, db: SlimmDatabase,
             return "v1", chunk, len(chunk[0]), k_steps, window
 
     try:
-        acc, kept = _pass_a_pieces(next_piece, t,
+        acc, kept = _pass_a_pieces(next_piece, grid,
                                    budget=engine.stream_device_cache_bytes,
                                    counter=counter)
     except ValueError as e:
         if "not qname-grouped" not in str(e):
             raise
-        if th is not None:
-            th.join()
-        options.bin_width = bw0  # undo _stream_init's auto default
-        return profile_file(options, db, path, device=device, engine=engine)
+        return give_way("not_grouped", th)
     except OverflowError:  # one read's targets exceed a v2 piece
-        options.bin_width = bw0
-        return profile_file(options, db, path, device=device, engine=engine)
+        return give_way("overflow", th)
     if th is not None:
         th.join()
     path_counts["stream_files"] += 1
-    hits_count = _stream_totals(st, sr, path)
+    hits_count = _stream_totals(st, sr, path, sharded_runner)
     timer.lap()
     if hits_count == 0:
         return st
     timer.start("Analysing alignments, reads and references ....... ")
-    out = _core_after_pieces(acc, kept, t, engine)
+    out = _core_after_pieces(grid, acc, kept, engine)
     timer.lap()
     t2 = PhaseTimer(enabled=engine.phase_log)
     t2.start("Filtering + LCA (fused above) ..................... ")

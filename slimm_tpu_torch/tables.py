@@ -39,6 +39,10 @@ class DeviceTables:
     def n_contigs(self) -> int:
         return int(self.lengths.shape[0])
 
+    @property
+    def device(self) -> torch.device:
+        return self.bin_offset.device
+
     @classmethod
     def from_numpy(cls, lengths, bin_offset, bin_ends, lineage, sk_code, *,
                    n_dense: int, n_codes: int, half: int, bin_width: int, q,
