@@ -7,11 +7,18 @@ Phases, each timed; any failure raises and the script exits non-zero:
 
   device   the card's name and power limit, as nvidia-smi reports them
   build    the CUDA kernels of slimm_tpu_torch/csrc/ (nvcc, sm_90a) and the
-           native SAM/BAM decoder (make -C native)
-  kernels  each kernel against its plain PyTorch version on the card, on 8M
-           records at the profile's bin domains (among them a model shard's
-           slice of the bins, most records outside it): bit-equal, both
-           timed
+           native SAM/BAM decoder (g++ from native/ into
+           slimm_tpu_torch/_build/, slimm_tpu_torch/io/native.py)
+  kernels  each kernel against its plain PyTorch version on the card: the
+           main path's real inputs, captured from fused_profile on the 8M x
+           50 workload (pass A's bins and weights, pass B's combined index,
+           the pair index; and pass B's -ro/-co index), and uniform indices
+           at the profile's bin domains (among them a model shard's slice of
+           the bins, most records outside it), each at full size and cut to
+           a 2^18-record piece, the overlap path's piece: bit-equal; the
+           kernel, the plain version and one PyTorch call computing the same
+           histogram (index_add_, the library yardstick) timed, beside the
+           least time the card could take (bytes at 3.35 TB/s)
   core     fused_profile (emit_coverage=False, the default CLI path) on the
            bench workloads, 8M records x 50 contigs and 10M x 1000, on cuda
            and on cpu: the packed stats vectors must be equal; then the
@@ -49,10 +56,12 @@ Phases, each timed; any failure raises and the script exits non-zero:
            TSV of every process equal to a one-process run's
 
 With several shards on one card, the sharded numbers measure the cost of
-routing and merging, not scale-out.  The line before the last is a JSON
-object describing each kernel, its launches summed over the path runs of
-every phase; the last line is {"ok": true, "device": {"platform": "gpu",
-"kind": ..., "count": ...}}.  The card's numbers come from this run alone.
+routing and merging, not scale-out.  Nothing of JAX or of slimm_tpu is
+imported: both are made unimportable in this process.  The line before the
+last is a JSON object describing each kernel, its launches summed over the
+path runs of every phase; the last line is {"ok": true, "device":
+{"platform": "gpu", "kind": ..., "count": ...}}.  The card's numbers come
+from this run alone.
 """
 
 import contextlib
@@ -67,10 +76,14 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# the port runs without JAX: make any import of it fail in this process
+# the port runs without JAX and without the JAX package: make any import of
+# either fail in this process
 sys.modules["jax"] = None
+sys.modules["slimm_tpu"] = None
 
 RECORDS = 8_000_000
+PIECE = 1 << 18                 # records of an overlap-path piece
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 CORE_WORKLOADS = [(8_000_000, 50, 0), (10_000_000, 1000, 2)]
 CLI_RECORDS = 1_000_000
 STREAM_RECORDS = 4_000_000
@@ -125,15 +138,37 @@ def run(cmd, **kw):
 
 
 def geometry(n_contigs, seed, bin_width=150):
-    """Bin-domain sizes of bench.make_workload(n, n_contigs, seed)."""
+    """Bin-domain sizes of workload.make_workload(n, n_contigs, seed)."""
     import numpy as np
 
-    import bench
+    from slimm_tpu_torch.utils import workload
 
-    w = bench.make_workload(2_000, n_contigs, seed=seed)
+    w = workload.make_workload(2_000, n_contigs, seed=seed)
     nbins = w["lengths"] // np.uint32(bin_width) + 1
     pair = -(-(n_contigs * w["n_codes"]) // 1024) * 1024
     return int(nbins.sum()), n_contigs + w["n_dense"], pair
+
+
+def core_inputs(torch, np, pipeline, w, n_contigs, device):
+    """fused_profile's record tensors, tables and segment plan for the
+    bench workload `w` on `device`."""
+    from slimm_tpu_torch.tables import DeviceTables
+
+    bw = w["avg_read_len"]
+    nbins = w["lengths"] // np.uint32(bw) + 1
+    boff = np.concatenate([[0], np.cumsum(nbins)[:-1]])
+    read_id, rid, pos, dedup_window, k_steps, window = \
+        pipeline.plan_records(w["read_id"], w["rid"], w["pos"], n_contigs,
+                              deduped=False)
+    tables = DeviceTables.from_numpy(
+        w["lengths"], boff, boff + nbins, w["lineage"], w["sk_code"],
+        n_dense=w["n_dense"], n_codes=w["n_codes"], half=bw // 2,
+        bin_width=bw, q=0.95, device=device)
+    records = (read_id, rid, pos)
+    args = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+            for a in records]
+    plan = dict(dedup_window=dedup_window, k_steps=k_steps, window=window)
+    return args, tables, plan, records
 
 
 def _load_toy():
@@ -148,119 +183,172 @@ def _load_toy():
     return mod
 
 
-def kernel_phase(torch, np, hist, cuda_time, shared_counters, device):
-    """Each kernel against its plain version at the profile's domains, on
-    `device`; returns one row per case."""
-    import bench
+def capture_main_path(torch, np, pipeline, device):
+    """The histogram inputs of fused_profile on the 8M x 50 workload, as the
+    main path hands them to the kernels: pass A's (bins, nondup, unique),
+    pass B's combined index (pipeline.py _pass_b_local) and the pair index,
+    and with -ro/-co pass B's [uniq_cov2 | taxa] index."""
+    from slimm_tpu_torch.utils import workload
+
+    args, tables, plan, _ = core_inputs(
+        torch, np, pipeline, workload.make_workload(RECORDS, 50, seed=0), 50,
+        device)
+    calls = []
+    hist1, hist2 = pipeline.hist1, pipeline.hist2
+
+    def rec1(idx, w, n_bins):
+        calls.append(("hist1", idx.clone(), w.clone(), None, n_bins))
+        return hist1(idx, w, n_bins)
+
+    def rec2(idx, w1, w2, n_bins):
+        calls.append(("hist2", idx.clone(), w1.clone(), w2.clone(), n_bins))
+        return hist2(idx, w1, w2, n_bins)
+
+    pipeline.hist1, pipeline.hist2 = rec1, rec2
+    try:
+        for emit_coverage in (False, True):
+            pipeline.fused_profile(*args, tables, emit_coverage=emit_coverage,
+                                   **plan)
+    finally:
+        pipeline.hist1, pipeline.hist2 = hist1, hist2
+    kinds = [c[0] for c in calls]
+    require(kinds == ["hist2", "hist1", "hist1"] * 2,
+            f"fused_profile called the histograms as {kinds}")
+    return {"passA_real": calls[0], "passB_real": calls[1],
+            "pairs_real": calls[2], "cov2_real": calls[4]}
+
+
+def library_call(torch, kernel, idx, w1, w2, n_bins):
+    """One PyTorch call per histogram computing it: index_add_ of ones into
+    n_bins + 1 counters, dropped and zero-weight records sent to the last
+    one (the index is made here, outside the timed call)."""
+    ones = torch.ones(idx.numel(), dtype=torch.int32, device=idx.device)
+    targets = [torch.where(w & (idx >= 0) & (idx < n_bins), idx,
+                           n_bins).long()
+               for w in ((w1,) if kernel == "hist1" else (w1, w2))]
+
+    def run():
+        return [torch.zeros(n_bins + 1, dtype=torch.int32,
+                            device=idx.device).index_add_(0, t, ones)[:n_bins]
+                for t in targets]
+    return run
+
+
+def kernel_case(torch, hist, batch_time, name, kernel, idx, w1, w2, n_bins):
+    """The kernel, its plain version and the library call on one input:
+    bit-equal, each timed (batch_time); returns the case's row."""
+    hists = 1 if kernel == "hist1" else 2
+    if kernel == "hist2":
+        run_k = lambda: hist.hist2(idx, w1, w2, n_bins)  # noqa: E731
+        run_p = lambda: hist.hist2_plain(idx, w1, w2, n_bins)  # noqa: E731
+    else:
+        run_k = lambda: (hist.hist1(idx, w1, n_bins),)  # noqa: E731
+        run_p = lambda: (hist.hist1_plain(idx, w1, n_bins),)  # noqa: E731
+    run_l = library_call(torch, kernel, idx, w1, w2, n_bins)
+    got, want, lib = run_k(), run_p(), run_l()
+    torch.cuda.synchronize()
+    err = max(int((g.long() - p.long()).abs().max()) for g, p in
+              zip(got, want))
+    for g, p, q in zip(got, want, lib):
+        require(torch.equal(g, p), f"{name}: {kernel} != plain version")
+        require(torch.equal(q, p), f"{name}: library call != plain version")
+    n = idx.numel()
+    plan = hist.plan_for(idx, n_bins, hists)
+    nbytes = n * (4 + hists) + hists * n_bins * 4
+    row = dict(case=name, kernel=kernel, n=n, n_bins=n_bins,
+               kept=int((w1 & (idx >= 0) & (idx < n_bins)).sum()),
+               variant=hist.VARIANT_NAMES[plan.variant], blocks=plan.blocks,
+               max_abs_err=err, ms=batch_time(run_k) * 1e3,
+               plain_ms=batch_time(run_p) * 1e3,
+               library_ms=batch_time(run_l) * 1e3, bytes=nbytes,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    row["share"] = row["bound_ms"] / row["ms"]
+    log(f"  {name:28s} {kernel} n={n:>8d} bins={n_bins:>9d} "
+        f"{row['variant']:6s} x{plan.blocks:<4d} equal  kernel "
+        f"{row['ms']:.4f}  library {row['library_ms']:.4f}  plain "
+        f"{row['plain_ms']:.4f}  bound {row['bound_ms']:.4f} ms "
+        f"({nbytes} B, {row['share']:.1%})")
+    return row
+
+
+def kernel_phase(torch, np, pipeline, hist, batch_time, device):
+    """Each kernel against its plain version and the library call, on the
+    main path's real inputs and on uniform indices at the profile's
+    domains, at full size and cut to an overlap-path piece; one row per
+    case."""
     from slimm_tpu_torch.parallel.runner import model_slices
 
     a50, b50, p50 = geometry(50, 0)
     a1k, b1k, p1k = geometry(1000, 2)
+    real = capture_main_path(torch, np, pipeline, device)
     rng = np.random.default_rng(1)
-    w = bench.make_workload(RECORDS, 50, seed=0)
-    nbins = w["lengths"] // np.uint32(150) + 1
-    boff = np.concatenate([[0], np.cumsum(nbins)[:-1]]).astype(np.int64)
-    center = np.minimum(w["pos"].astype(np.uint32) + np.uint32(75),
-                        w["lengths"][w["rid"]])
-    workload_bins = (boff[w["rid"]] + center // np.uint32(150)).astype(np.int32)
 
-    # (name, kernel, domain, weight density, index source, model shards):
-    # with model shards M, the kernel runs over model shard 1's slice of
-    # the domain, as pass A and the -ro/-co uniq_cov2 of a model-sharded
-    # profile do, with the records outside it weighted 0
-    cases = [
-        ("passA_bins_50ctg", "hist2", a50, 0.9, "workload", 1),
-        ("passA_d0", "hist2", a50, 0.0, "uniform", 1),
-        ("passA_d0.9", "hist2", a50, 0.9, "uniform", 1),
-        ("passA_d1", "hist2", a50, 1.0, "uniform", 1),
-        ("passA_1000ctg", "hist2", a1k, 0.9, "uniform", 1),
-        ("passA_12.6M", "hist2", 12_600_000, 0.9, "uniform", 1),
-        ("hist2_shared", "hist2", shared_counters // 2, 0.9, "uniform", 1),
-        ("passA_model2_50ctg", "hist2", a50, 0.9, "workload", 2),
-        ("passA_model4_1000ctg", "hist2", a1k, 0.9, "uniform", 4),
-        ("passB_taxa_50ctg", "hist1", b50, 0.9, "uniform", 1),
-        ("passB_taxa_1000ctg", "hist1", b1k, 0.9, "uniform", 1),
-        ("passB_pairs_50ctg", "hist1", p50, 0.9, "uniform", 1),
-        ("passB_pairs_1000ctg", "hist1", p1k, 0.9, "uniform", 1),
-        ("passB_cov2_50ctg", "hist1", a50 + b50 - 50, 0.9, "uniform", 1),
-    ]
-    rows = []
-    for name, kernel, n_bins, density, source, model in cases:
-        if source == "workload":
-            idx = workload_bins.copy()
-        else:
-            idx = rng.integers(0, n_bins, RECORDS).astype(np.int32)
-        n = len(idx)
-        keep = np.ones(n, bool)
-        if model > 1:
-            lo, hi = model_slices(n_bins, model)[1]
-            idx -= lo
-            n_bins = hi - lo
-            keep = (idx >= 0) & (idx < n_bins)
+    def uniform(n_bins, density):
+        idx = rng.integers(0, n_bins, RECORDS).astype(np.int32)
         idx[:70_000] = n_bins // 3              # one bin with 70,000 hits
-        keep[:70_000] = True
-        oor = rng.choice(n, 2_000, replace=False)
+        oor = rng.choice(RECORDS, 2_000, replace=False)
         idx[oor] = np.where(np.arange(2_000) % 2 == 0, -1 - oor % 100,
                             n_bins + oor % 100)  # dropped, weight or not
-        dropped = 1.0 - float(keep.mean())
-        d_idx = torch.from_numpy(idx).to(device)
-        d_w1 = torch.from_numpy((rng.random(n) < density) & keep).to(device)
-        d_w2 = torch.from_numpy((rng.random(n) < 0.85 * density)
-                                & keep).to(device)
-        if kernel == "hist2":
-            run_k = lambda: hist.hist2(d_idx, d_w1, d_w2, n_bins)  # noqa: E731
-            run_p = lambda: hist.hist2_plain(d_idx, d_w1, d_w2, n_bins)  # noqa: E731
-        else:
-            run_k = lambda: (hist.hist1(d_idx, d_w1, n_bins),)  # noqa: E731
-            run_p = lambda: (hist.hist1_plain(d_idx, d_w1, n_bins),)  # noqa: E731
-        got = run_k()
-        want = run_p()
-        err = max(int((g.long() - p.long()).abs().max()) for g, p in
-                  zip(got, want))
-        for g, p in zip(got, want):
-            require(torch.equal(g, p), f"{name}: {kernel} != plain version")
-        require(int(want[0].sum()) > 0 or density == 0.0, f"{name}: empty")
-        ms = cuda_time(run_k, reps=7) * 1e3
-        plain_ms = cuda_time(run_p, reps=7) * 1e3
-        variant = ("shared" if (2 if kernel == "hist2" else 1) * n_bins
-                   <= shared_counters else "global")
-        rows.append(dict(case=name, kernel=kernel, n_bins=n_bins,
-                         density=density, model_shards=model,
-                         dropped=dropped, variant=variant, max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms))
-        log(f"  {name:22s} {kernel} bins={n_bins:>10d} w={density:<4} "
-            f"outside {dropped:.3f} {variant:6s} equal  kernel {ms:.4f} ms  "
-            f"plain {plain_ms:.4f} ms")
+        w1 = rng.random(RECORDS) < density
+        w2 = rng.random(RECORDS) < 0.85 * density
+        return [torch.from_numpy(a).to(device) for a in (idx, w1, w2)]
+
+    def model_shard(kernel, idx, w1, w2, n_bins, shards):
+        # model shard 1's slice of the domain, as pass A and the -ro/-co
+        # uniq_cov2 of a model-sharded profile see it: records outside it
+        # weighted 0
+        lo, hi = model_slices(n_bins, shards)[1]
+        idx = idx - lo
+        inside = (idx >= 0) & (idx < hi - lo)
+        return kernel, idx, w1 & inside, w2 & inside, hi - lo
+
+    pa = real["passA_real"]
+    cases = dict(real)
+    cases.update({
+        "passA_d0": ("hist2", *uniform(a50, 0.0), a50),
+        "passA_d0.9": ("hist2", *uniform(a50, 0.9), a50),
+        "passA_d1": ("hist2", *uniform(a50, 1.0), a50),
+        "passA_1000ctg": ("hist2", *uniform(a1k, 0.9), a1k),
+        "passA_12.6M": ("hist2", *uniform(12_600_000, 0.9), 12_600_000),
+        "hist2_shared_16384": ("hist2", *uniform(16_384, 0.9), 16_384),
+        "passA_model2_50ctg_real": model_shard(*pa, 2),
+        "passA_model4_1000ctg": model_shard("hist2", *uniform(a1k, 0.9),
+                                            a1k, 4),
+        "passB_taxa_50ctg": ("hist1", *uniform(b50, 0.9), b50),
+        "passB_taxa_1000ctg": ("hist1", *uniform(b1k, 0.9), b1k),
+        "passB_pairs_50ctg": ("hist1", *uniform(p50, 0.9), p50),
+        "passB_pairs_1000ctg": ("hist1", *uniform(p1k, 0.9), p1k),
+        "passB_cov2_50ctg": ("hist1", *uniform(a50 + b50 - 50, 0.9),
+                             a50 + b50 - 50),
+    })
+    rows = []
+    for name, (kernel, idx, w1, w2, n_bins) in cases.items():
+        for size in ("full", "piece"):
+            cut = slice(None) if size == "full" else slice(0, PIECE)
+            rows.append(kernel_case(
+                torch, hist, batch_time, name + ("" if size == "full" else
+                                                 "_piece"), kernel,
+                idx[cut].contiguous(), w1[cut].contiguous(),
+                None if w2 is None else w2[cut].contiguous(), n_bins))
     return rows
 
 
 def core_phase(torch, np, pipeline, cuda_time, hist, device):
     """fused_profile on `device` and on the CPU; packed vectors equal."""
-    import bench
-    from slimm_tpu_torch.tables import DeviceTables
+    from slimm_tpu_torch.utils import workload
 
     for n, n_contigs, seed in CORE_WORKLOADS:
         t0 = time.perf_counter()
-        w = bench.make_workload(n, n_contigs, seed=seed)
-        bw = w["avg_read_len"]
-        nbins = w["lengths"] // np.uint32(bw) + 1
-        boff = np.concatenate([[0], np.cumsum(nbins)[:-1]])
-        read_id, rid, pos, dedup_window, k_steps, window = \
-            pipeline.plan_records(w["read_id"], w["rid"], w["pos"], n_contigs,
-                                  deduped=False)
+        w = workload.make_workload(n, n_contigs, seed=seed)
         packed = {}
         for dev in (device, "cpu"):
-            tables = DeviceTables.from_numpy(
-                w["lengths"], boff, boff + nbins, w["lineage"], w["sk_code"],
-                n_dense=w["n_dense"], n_codes=w["n_codes"], half=bw // 2,
-                bin_width=bw, q=0.95, device=dev)
-            args = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-                    for a in (read_id, rid, pos)]
+            args, tables, plan, records = core_inputs(torch, np, pipeline, w,
+                                                      n_contigs, dev)
+            read_id = records[0]
 
             def core():
                 return pipeline.fused_profile(
-                    *args, tables, dedup_window=dedup_window, k_steps=k_steps,
-                    window=window, emit_coverage=False)["packed"]
+                    *args, tables, emit_coverage=False, **plan)["packed"]
 
             if dev == device:
                 hist.reset_launch_counts()
@@ -274,10 +362,7 @@ def core_phase(torch, np, pipeline, cuda_time, hist, device):
                     f"{len(read_id) / secs:.0f} records/s, "
                     f"launches hist1={launches[0]} hist2={launches[1]}")
                 sharded_core(torch, np, pipeline, cuda_time, hist, tables,
-                             (read_id, rid, pos),
-                             dict(dedup_window=dedup_window, k_steps=k_steps,
-                                  window=window),
-                             packed[dev], n_contigs, secs)
+                             records, plan, packed[dev], n_contigs, secs)
             else:
                 c0 = time.perf_counter()
                 packed[dev] = core().numpy()
@@ -364,23 +449,20 @@ def stream_phase(torch, np, pipeline, hist, tmp, device, smi):
     whole-file path on the CPU, on one 4M-record SAM.  On a GPU, pass A of
     the pieces runs under torch's sync debug mode "error": any call in it
     that makes the host wait for the card raises."""
-    import bench
-    from slimm_tpu.config import EngineOptions, ProfileOptions
-    from slimm_tpu.io import native
-    from slimm_tpu_torch.engine.reports import write_abundance
-
     import slimm_tpu_torch.parallel.runner as runner_mod
+    from slimm_tpu_torch.config import EngineOptions, ProfileOptions
+    from slimm_tpu_torch.engine.reports import write_abundance
+    from slimm_tpu_torch.io import native
     from slimm_tpu_torch.parallel import ShardedRunner
+    from slimm_tpu_torch.utils import workload
 
-    require(native.available(), "stream phase: the native decoder is not "
-            "built, and neither streamed path exists without it")
     t0 = time.perf_counter()
     d = os.path.join(tmp, "stream")
     os.makedirs(d)
-    w = bench.make_workload(STREAM_RECORDS, 50, seed=1)
+    w = workload.make_workload(STREAM_RECORDS, 50, seed=1)
     sam = os.path.join(d, "stream.sam")
-    mb = bench.write_bench_sam(sam, w, 50)
-    db = bench.make_bench_db(w, 50)
+    mb = workload.write_bench_sam(sam, w, 50)
+    db = workload.make_bench_db(w, 50)
     require(int(w["lengths"].max()) // 40 >= 32768
             and int(w["lengths"].max()) // 20 > pipeline.V2_MAX_BIN,
             "the contigs do not reach the bins the -w 40 and -w 20 runs need")
@@ -630,9 +712,9 @@ def route_bench(torch, np, pipeline, runner_mod, device):
 def cli_phase(hist, tmp, device_args):
     """The profile CLI; `device_args` select its device ([] takes the
     default, cuda).  Returns the launch counts of the main-path run."""
-    import bench
     from slimm_tpu_torch import cli
     from slimm_tpu_torch.engine import pipeline
+    from slimm_tpu_torch.utils import workload
 
     toy = _load_toy()
     py = [sys.executable, "-m", "slimm_tpu_torch"]
@@ -657,11 +739,11 @@ def cli_phase(hist, tmp, device_args):
     t0 = time.perf_counter()
     d = os.path.join(tmp, "bench")
     os.makedirs(d)
-    w = bench.make_workload(CLI_RECORDS, 50, seed=1)
+    w = workload.make_workload(CLI_RECORDS, 50, seed=1)
     sam = os.path.join(d, "bench.sam")
-    mb = bench.write_bench_sam(sam, w, 50)
+    mb = workload.write_bench_sam(sam, w, 50)
     db = os.path.join(d, "bench.sldb")
-    bench.make_bench_db(w, 50).save_sldb(db)
+    workload.make_bench_db(w, 50).save_sldb(db)
     log(f"  wrote {len(w['read_id'])}-record SAM ({mb:.1f} MB) and DB: "
         f"{time.perf_counter() - t0:.3f} s")
     hist.reset_launch_counts()
@@ -726,8 +808,8 @@ def multi_child(backend, init_method, world, rank, db_path, sam, out_dir):
     import torch
     import torch.distributed as dist
 
-    from slimm_tpu.config import EngineOptions, ProfileOptions
-    from slimm_tpu.database import SlimmDatabase
+    from slimm_tpu_torch.config import EngineOptions, ProfileOptions
+    from slimm_tpu_torch.database import SlimmDatabase
     from slimm_tpu_torch.engine import pipeline
     from slimm_tpu_torch.engine.reports import write_abundance
     from slimm_tpu_torch.ops import hist
@@ -735,7 +817,9 @@ def multi_child(backend, init_method, world, rank, db_path, sam, out_dir):
 
     initialize(backend, init_method, world, rank)
     try:
-        # under NCCL the process's own GPU; gloo is given cuda:0 tensors
+        # by default the process's own GPU (cuda:LOCAL_RANK, here the rank);
+        # the two-process gloo world asks for cuda:0 (NCCL refuses two
+        # ranks on one GPU)
         runner = (MultiHostRunner() if backend == "nccl"
                   else MultiHostRunner(devices=["cuda:0"]))
         require(runner.distributed and dist.get_backend() == backend
@@ -780,10 +864,10 @@ def multi_phase(np, pipeline, tmp, bench_files):
     world on its halves (split by read, in order of first appearance, as
     tests/_mp_child.py splits), started together; every process's TSVs
     equal the one-process run's."""
-    import bench
-    from slimm_tpu.config import EngineOptions, ProfileOptions
-    from slimm_tpu.database import SlimmDatabase
+    from slimm_tpu_torch.config import EngineOptions, ProfileOptions
+    from slimm_tpu_torch.database import SlimmDatabase
     from slimm_tpu_torch.engine.reports import write_abundance
+    from slimm_tpu_torch.utils import workload
 
     t0 = time.perf_counter()
     w, db_path, sam = bench_files
@@ -796,7 +880,7 @@ def multi_phase(np, pipeline, tmp, bench_files):
     for r in range(2):
         sel = order % 2 == r
         halves.append(os.path.join(d, f"rank{r}.sam"))
-        bench.write_bench_sam(halves[-1], dict(
+        workload.write_bench_sam(halves[-1], dict(
             w, read_id=w["read_id"][sel], rid=w["rid"][sel],
             pos=w["pos"][sel]), 50)
     st = pipeline.profile_file(
@@ -851,9 +935,11 @@ def multi_phase(np, pipeline, tmp, bench_files):
 
 def main() -> int:
     if not (os.path.isdir(os.path.join(ROOT, "slimm_tpu_torch"))
-            and os.path.exists(os.path.join(ROOT, "bench.py"))):
+            and os.path.exists(os.path.join(ROOT, "native",
+                                            "slimm_native.cpp"))):
         print("chip_smoke.py: run it from a checkout of the repository "
-              "(slimm_tpu_torch/ not found beside it)", file=sys.stderr)
+              "(slimm_tpu_torch/ and native/ not found beside it)",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -871,26 +957,32 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    from slimm_tpu_torch.engine import pipeline
-    from slimm_tpu_torch.ops import _build, hist
-    from slimm_tpu_torch.utils.devbench import cuda_time
+    from concurrent.futures import ThreadPoolExecutor
 
-    lib = _build.load()
-    log(f"  kernels built in {time.perf_counter() - t0:.3f} s: "
-        f"{os.path.relpath(_build.library_path(), ROOT)}")
-    n0 = time.perf_counter()
-    make = subprocess.run(["make", "-C", os.path.join(ROOT, "native")],
-                          capture_output=True, text=True)
-    native = os.path.exists(os.path.join(ROOT, "slimm_tpu", "native",
-                                         "libslimm_native.so"))
-    log(f"  native decoder: make exit {make.returncode} in "
-        f"{time.perf_counter() - n0:.3f} s; SAM decoder in use: "
-        f"{'native C++' if native else 'pure Python'}")
+    from slimm_tpu_torch.engine import pipeline
+    from slimm_tpu_torch.io import native
+    from slimm_tpu_torch.ops import _build, hist
+    from slimm_tpu_torch.utils.devbench import batch_time, cuda_time
+
+    def timed(build):
+        c0 = time.perf_counter()
+        return build(), time.perf_counter() - c0
+
+    # nvcc and g++ side by side
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(timed, b) for b in (_build.build, native.build)]
+        (kernels_so, kernels_s), (native_so, native_s) = [
+            f.result() for f in builds]
+    _build.load()
+    log(f"  kernels built in {kernels_s:.3f} s: "
+        f"{os.path.relpath(kernels_so, ROOT)}")
+    log(f"  native SAM/BAM decoder built in {native_s:.3f} s: "
+        f"{os.path.relpath(native_so, ROOT)}")
+    log(f"  SMs, shared memory per block: {hist.device_limits(0)}")
     phase("build", t0)
 
     t0 = time.perf_counter()
-    rows = kernel_phase(torch, np, hist, cuda_time,
-                        lib.slimm_hist_shared_counters(), "cuda")
+    rows = kernel_phase(torch, np, pipeline, hist, batch_time, "cuda")
     phase("kernels", t0)
 
     core_phase(torch, np, pipeline, cuda_time, hist, "cuda")
@@ -905,8 +997,7 @@ def main() -> int:
     log(f"  launches of the CLI's main-path run {main_launches}; of every "
         f"path run {PATH_LAUNCHES}")
 
-    main_case = {"slimm_hist2": "passA_bins_50ctg",
-                 "slimm_hist1": "passB_taxa_50ctg"}
+    main_case = {"slimm_hist2": "passA_real", "slimm_hist1": "passB_real"}
     replaces = {"slimm_hist2": "slimm_tpu/ops/hist.py:130",
                 "slimm_hist1": "slimm_tpu/ops/hist.py:147"}
     kernels = []
@@ -918,7 +1009,9 @@ def main() -> int:
             replaces=replaces[name], launches=PATH_LAUNCHES[name],
             max_abs_err=max(r["max_abs_err"] for r in rows
                             if r["kernel"] == kind),
-            ms=row["ms"], plain_ms=row["plain_ms"]))
+            ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by="bytes",
+            library_ms=row["library_ms"], share=row["share"]))
     log(json.dumps({"cases": rows}))
     log(smi[0])
     log(f"[phase] total: {time.perf_counter() - t_all:.3f} s")

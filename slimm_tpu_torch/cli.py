@@ -2,8 +2,8 @@
 
   profile  — the profiler on one device (`--device cuda`, the default, or
              `--device cpu`); the options of slimm_tpu's profile parser
-  build    — slimm_tpu.cli.cmd_build, unchanged
-  collect  — slimm_tpu.cli.cmd_collect, unchanged
+  build    — the DB builder, as slimm_tpu's (the port's own copy)
+  collect  — the multi-sample merge, as slimm_tpu's, without pandas
 
 A missing GPU under `--device cuda` is an error, never a silent run on the
 CPU.  `--stream N` profiles each file by chunk streaming; files of 64 MB or
@@ -22,12 +22,164 @@ import copy
 import json
 import sys
 
-from slimm_tpu.cli import (_print_filter_stat, _print_matches_stat,
-                           build_build_parser, build_collect_parser,
-                           build_profile_parser, cmd_build, cmd_collect)
-from slimm_tpu.config import EngineOptions, ProfileOptions
-
 from . import __version__
+from .config import BuildOptions, EngineOptions, ProfileOptions
+from .taxonomy import RANK_LIST
+
+
+# copied from slimm_tpu/cli.py:21-123 (parsers) and 291-340 (stats, build,
+# collect)
+def _range_float(lo, hi):
+    def parse(s):
+        v = float(s)
+        if not (lo <= v <= hi):
+            raise argparse.ArgumentTypeError(
+                f"value {v} not in range [{lo}, {hi}]")
+        return v
+    return parse
+
+
+def build_profile_parser(sub) -> argparse.ArgumentParser:
+    p = sub.add_parser(
+        "profile",
+        help="Species Level Identification of Microbes from Metagenomes",
+        description="Taxonomic profiling of SAM/BAM alignments against a "
+                    ".sldb database (PyTorch engine).")
+    p.add_argument("DB", help="taxonomy database (.sldb or .sldb.npz)")
+    p.add_argument("IN", help="SAM/BAM file (or directory with -d)")
+    p.add_argument("-o", "--output-prefix", default=None,
+                   help="output path prefix.")
+    p.add_argument("-w", "--bin-width", type=int, default=0,
+                   help="Set the width of a single bin in neuclotides.")
+    p.add_argument("-mr", "--min-reads", type=int, default=0,
+                   help="Minimum number of matching reads to consider a "
+                        "reference present.")
+    p.add_argument("-r", "--rank", default="species", choices=RANK_LIST,
+                   help="The taxonomic rank of identification")
+    p.add_argument("-cc", "--cov-cut-off", type=_range_float(0.0, 1.0),
+                   default=0.95,
+                   help="the quantile of coverages to use as a cutoff "
+                        "smaller value means bigger threshold.")
+    p.add_argument("-ac", "--abundance-cut-off", type=_range_float(0.0, 10.0),
+                   default=0.01, help="do not report abundances below this value")
+    p.add_argument("-d", "--directory", action="store_true",
+                   help="Input is a directory.")
+    p.add_argument("-ro", "--raw-output", action="store_true",
+                   help="Output raw reference statstics")
+    p.add_argument("-co", "--coverage-output", action="store_true",
+                   help="Output raw coverage statstics")
+    p.add_argument("-v", "--verbose", action="store_true",
+                   help="Enable verbose output.")
+    # execution knobs (no reference analogue; results are invariant)
+    p.add_argument("--shards", type=int, default=None,
+                   help="data-parallel device shards (default: all devices)")
+    p.add_argument("--hash-read-names", action="store_true",
+                   help="intern read names as 64-bit hashes (billion-read "
+                        "scale mode: ~1/4 the dictionary memory; colliding "
+                        "names merge, ~3%% chance of one merged pair at "
+                        "1e9 reads)")
+    p.add_argument("--stream", type=int, default=0, metavar="TARGETS",
+                   help="chunk-streaming decode+profile with this many "
+                        "alignment targets per device chunk (bounds device "
+                        "memory for huge files; 0 = whole-file dispatch)")
+    p.add_argument("--model-shards", type=int, default=1,
+                   help="shard the coverage-state bin axis over this many "
+                        "devices (for databases whose bin tables exceed "
+                        "one device; results are bit-identical)")
+    p.add_argument("--no-device", action="store_true",
+                   help="run the scalar oracle instead of the device engine")
+    p.add_argument("--trace-dir", default=None,
+                   help="write a profiler trace here")
+    p.add_argument("--json-stats", default=None,
+                   help="append one JSON line of counters per input file "
+                        "(structured observability alongside the reference's "
+                        "stderr phase log)")
+    return p
+
+
+def build_build_parser(sub) -> argparse.ArgumentParser:
+    p = sub.add_parser(
+        "build",
+        help="gets a reduced taxonomic information given a multi-fasta file "
+             "using accession numbers")
+    p.add_argument("FASTA", help="A multi-fasta file used as a reference "
+                                 "for mapping")
+    p.add_argument("ACC2TAXID", nargs="+",
+                   help="one or more accession to taxa id mapping files "
+                        "downloaded from ncbi (separated by space.)")
+    p.add_argument("-o", "--output-file", default="slimm_db.sldb",
+                   help="The path to the output file (default slimm_db.sldb)")
+    p.add_argument("-nm", "--names", required=True,
+                   help="NCBI's names.dmp file which contains the mapping "
+                        "of taxaid to name")
+    p.add_argument("-nd", "--nodes", required=True,
+                   help="NCBI's nodes.dmp file which contains the taxonomic "
+                        "tree.")
+    p.add_argument("-b", "--batch", type=int, default=1000000,
+                   help="maximum number of mapping to load to memory. "
+                        "(default=1000000)")
+    p.add_argument("-v", "--verbose", action="store_true",
+                   help="Enable verbose output.")
+    return p
+
+
+def build_collect_parser(sub) -> argparse.ArgumentParser:
+    p = sub.add_parser("collect",
+                       help="merge multiple _profile.tsv files into "
+                            "merged_profile.tsv")
+    p.add_argument("PROFILES", nargs="+", help="per-sample _profile.tsv files")
+    p.add_argument("-o", "--output", default="merged_profile.tsv")
+    return p
+
+
+def _print_matches_stat(state) -> None:
+    # (slimm.hpp:621-630)
+    print(f"  {state.hits_count} records processed.", file=sys.stderr)
+    print(f"    {state.matches_count} matching reads", file=sys.stderr)
+    print(f"    {state.uniq_matches_count} uniquily matching reads",
+          file=sys.stderr)
+    print(f"  references with reads = {state.reference_count}", file=sys.stderr)
+    print(f"  expected bins coverage = {state.expected_coverage():.6g}",
+          file=sys.stderr)
+    print(f"  bins coverage cut-off = {state.coverage_cut_off():.6g} "
+          f"({state.options.cov_cut_off} quantile)", file=sys.stderr)
+    print(f"  uniq bins coverage cut-off = {state.uniq_coverage_cut_off():.6g}"
+          f" ({state.options.cov_cut_off} quantile)\n", file=sys.stderr)
+
+
+def _print_filter_stat(state) -> None:
+    # (slimm.hpp:613-619)
+    print(f"  {len(state.valid_ref_ids)} passed the threshould coverage.",
+          file=sys.stderr)
+    print(f"  {state.failed_byCov} ref's couldn't pass the coverage "
+          "threshould.", file=sys.stderr)
+    print(f"  {state.failed_byUniqCov} ref's couldn't pass the uniq coverage "
+          "threshould.", file=sys.stderr)
+    print(f"  uniquily matching reads increased from "
+          f"{state.uniq_matches_count} to {state.uniq_matches_count2}\n",
+          file=sys.stderr)
+
+
+def cmd_build(args) -> int:
+    from .database import build_database
+
+    options = BuildOptions(
+        fasta_path=args.FASTA, ac__taxid_paths=args.ACC2TAXID,
+        names_path=args.names, nodes_path=args.nodes,
+        output_path=args.output_file, batch=args.batch, verbose=args.verbose)
+    db = build_database(options)
+    db.save_sldb(options.output_path)
+    db.save_npz(options.output_path + ".npz")
+    print(f"[MSG] database written to {options.output_path} "
+          f"(+ .npz cache)", file=sys.stderr)
+    return 0
+
+
+def cmd_collect(args) -> int:
+    from .tools.collect import collect_profiles
+
+    collect_profiles(args.PROFILES, args.output)
+    return 0
 
 
 def _not_ported(args) -> str | None:
@@ -78,14 +230,13 @@ def cmd_profile(args) -> int:
                                model_shards=args.model_shards,
                                device=args.device)
 
-    from slimm_tpu.database import SlimmDatabase
-    from slimm_tpu.io import AlignmentFile, collect_bam_files
-    from slimm_tpu.io.files import get_directory
-    from slimm_tpu.oracle import OracleProfiler
-    from slimm_tpu.utils.timer import Timer
-
+    from .database import SlimmDatabase
     from .engine.pipeline import profile_file, profile_file_streaming
     from .engine.reports import write_abundance, write_coverage, write_raw_stat
+    from .io import AlignmentFile, collect_bam_files
+    from .io.files import get_directory
+    from .oracle import OracleProfiler
+    from .utils.timer import Timer
 
     options = ProfileOptions(
         database_path=args.DB, input_path=args.IN,

@@ -25,7 +25,7 @@ Streamed files (the overlap path of `profile_file` for large files, and
 piece as the native stream decoder emits it, the cutoffs once after EOF,
 pass B over the kept pieces.  Reads never span pieces and every pass-B
 output is a sum or an OR over reads, so this is exact.  The port reads the
-v2 pieces that the native decoder (slimm_tpu.io.native) encodes: the
+v2 pieces that the native decoder (io/native.py) encodes: the
 bitpacked read boundaries, the narrow contig ids and the uint16 local
 bins, each cut to the piece's valid records (no padding).  v1 chunks (bin
 tables past uint16) upload their int32 (read_id, rid, pos) arrays as they
@@ -50,10 +50,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from slimm_tpu.config import EngineOptions, ProfileOptions
-from slimm_tpu.database import SlimmDatabase, tensorize
-from slimm_tpu.state import ProfileState, quantile_cut_off
-from slimm_tpu.utils.timer import PhaseTimer
+from ..config import EngineOptions, ProfileOptions
+from ..database import SlimmDatabase, tensorize
+from ..state import ProfileState, quantile_cut_off
+from ..utils.timer import PhaseTimer
 
 from ..ops.hist import hist1, hist2
 from ..tables import DeviceTables, device_tables
@@ -860,15 +860,16 @@ def _finalize_state(st, out, dense, engine, options, timer):
 
 # copied from slimm_tpu/engine/pipeline.py:1253-1263
 def open_alignment_file(path: str, engine: EngineOptions | None = None):
-    """Native C++ decoder when built (slimm_tpu/io/native.py), else the
-    pure-Python reference decoder — identical array contract."""
+    """The native C++ decoder (io/native.py, built at first use), or with
+    `use_native=False` the pure-Python reference decoder — identical array
+    contract."""
     engine = engine or EngineOptions()
     if engine.use_native:
-        from slimm_tpu.io import native
+        from ..io import native
         if native.available():
             return native.NativeAlignmentFile(
                 path, hash_names=engine.hash_read_names)
-    from slimm_tpu.io import AlignmentFile
+    from ..io import AlignmentFile
     return AlignmentFile(path)
 
 
@@ -1165,7 +1166,7 @@ def _profile_file_overlap(options: ProfileOptions, db: SlimmDatabase,
     read's targets past a piece, or input that stops being qname-grouped
     partway (coordinate-sorted input is regrouped by the decoder at EOF and
     stays on this path)."""
-    from slimm_tpu.io import native
+    from ..io import native
 
     def give_way(cause):
         path_counts["overlap_fallback_" + cause] += 1
@@ -1266,7 +1267,7 @@ def profile_file_streaming(options: ProfileOptions, db: SlimmDatabase,
     chunk_targets = chunk_targets or engine.stream_chunk or (4 << 20)
     timer = PhaseTimer(enabled=engine.phase_log)
     timer.start("Streaming alignment chunks ....................... ")
-    from slimm_tpu.io import native
+    from ..io import native
     bw0 = options.bin_width
 
     def give_way(cause, th=None):

@@ -12,8 +12,8 @@ from __future__ import annotations
 import os
 import sys
 
-from slimm_tpu.io.files import tsv_file_name
-from slimm_tpu.state import ProfileState
+from ..io.files import tsv_file_name
+from ..state import ProfileState
 
 
 def _open_out(path: str):
@@ -44,8 +44,8 @@ def write_abundance(state: ProfileState, output_prefix: str,
     if state.options.verbose:
         # per-rank summary (slimm.hpp:836-840; typo "bellow" is verbatim);
         # setw(4)/setw(15) right-alignment, no trailing newline
-        from slimm_tpu.state import fmt_float
-        from slimm_tpu.taxonomy import considered_ranks, rank_name
+        from ..state import fmt_float
+        from ..taxonomy import considered_ranks, rank_name
         rank = considered_ranks(state.options.rank)[1]
         sys.stderr.write(
             f"\n{state.rank_row_count:>4}{rank_name(rank):>15} "

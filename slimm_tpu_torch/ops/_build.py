@@ -62,10 +62,11 @@ def load() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = ctypes.CDLL(build())
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
-    lib.slimm_hist1.argtypes = [p, p, i64, p, i32, p]
+    plan = [ctypes.c_int] * 4      # ops/hist.py Plan: variant .. smem
+    lib.slimm_hist1.argtypes = [p, p, i64, p, i32, *plan, p]
     lib.slimm_hist1.restype = ctypes.c_int
-    lib.slimm_hist2.argtypes = [p, p, p, i64, p, p, i32, p]
+    lib.slimm_hist2.argtypes = [p, p, p, i64, p, p, p, i32, *plan, p]
     lib.slimm_hist2.restype = ctypes.c_int
-    lib.slimm_hist_shared_counters.argtypes = []
-    lib.slimm_hist_shared_counters.restype = ctypes.c_int
+    lib.slimm_hist_init.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.slimm_hist_init.restype = ctypes.c_int
     return lib

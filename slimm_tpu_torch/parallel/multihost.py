@@ -11,7 +11,10 @@ process holds the merged results and can write the reports.
 
 In code: `initialize()` in every process, then `MultiHostRunner()` as the
 `sharded_runner` of engine.pipeline's profile functions, each process
-giving its own reads.  The launcher, one command per process,
+giving its own reads.  Both default to the card: NCCL, and the GPU
+cuda:LOCAL_RANK.  A run on the CPU asks for it,
+`initialize(backend="gloo")` and `MultiHostRunner(devices=["cpu"])`, and
+without a GPU the defaults raise.  The launcher, one command per process,
 
     python -m slimm_tpu_torch.parallel.multihost \\
         --init-method tcp://host0:29500 --world-size 4 --rank $RANK -- \\
@@ -32,30 +35,30 @@ import torch.distributed as dist
 from .runner import ShardedRunner
 
 
-def initialize(backend: str | None = None, init_method: str | None = None,
+def _local_gpu(rank: int) -> torch.device:
+    """cuda:LOCAL_RANK (else the global rank); raises without a GPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: multi-process runs default to NCCL on the GPU; "
+            "ask for the CPU with initialize(backend='gloo') and "
+            "MultiHostRunner(devices=['cpu'])")
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
+
+
+def initialize(backend: str = "nccl", init_method: str | None = None,
                world_size: int | None = None, rank: int | None = None
                ) -> None:
     """torch.distributed.init_process_group with this repository's
     defaults: world size and rank from WORLD_SIZE and RANK when not given,
-    `env://` as the init method, NCCL where CUDA is available and gloo
-    elsewhere unless `backend` says otherwise.  Under NCCL each process
-    takes the GPU cuda:LOCAL_RANK."""
+    `env://` as the init method, NCCL with each process on its GPU
+    cuda:LOCAL_RANK.  gloo runs only when `backend` asks for it."""
     world_size = (int(os.environ.get("WORLD_SIZE", 1)) if world_size is None
                   else world_size)
     rank = int(os.environ.get("RANK", 0)) if rank is None else rank
-    if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
     if backend == "nccl":
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)))
+        torch.cuda.set_device(_local_gpu(rank))
     dist.init_process_group(backend, init_method=init_method or "env://",
                             world_size=world_size, rank=rank)
-
-
-def _process_device() -> torch.device:
-    """This process's device: its GPU under NCCL, else the CPU."""
-    if dist.is_initialized() and dist.get_backend() == "nccl":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
 
 
 def shard_paths(paths: list, rank: int | None = None,
@@ -77,13 +80,15 @@ class MultiHostRunner(ShardedRunner):
     """`sharded_runner` spanning every process of the initialized group.
 
     Each process feeds the records of ITS reads only (read ids local to the
-    process) and runs them on `devices`, its data shards (default: one,
-    the process's GPU under NCCL, else the CPU).  Without an initialized
-    group it is a one-process ShardedRunner."""
+    process) and runs them on `devices`, its data shards (default: one, the
+    process's GPU cuda:LOCAL_RANK; the CPU only when given, as "cpu").
+    Without an initialized group it is a one-process ShardedRunner."""
 
     def __init__(self, devices=None):
-        super().__init__(devices=[[torch.device(d)] for d in
-                                  (devices or [_process_device()])])
+        if devices is None:
+            rank = dist.get_rank() if dist.is_initialized() else 0
+            devices = [_local_gpu(rank)]
+        super().__init__(devices=[[torch.device(d)] for d in devices])
         self.distributed = dist.is_available() and dist.is_initialized()
         self.reduce = _all_reduce if self.distributed else None
         self._dev = self.devices[0][0]
@@ -116,6 +121,9 @@ def main(argv=None):
                    help="tcp://host:port of process 0 (default env://)")
     p.add_argument("--world-size", type=int, default=None)
     p.add_argument("--rank", type=int, default=None)
+    p.add_argument("--backend", default="nccl", choices=("nccl", "gloo"),
+                   help="the process group's backend (default nccl, on the "
+                        "GPUs; gloo for a run with --device cpu)")
     p.add_argument("rest", nargs=argparse.REMAINDER,
                    help="-- followed by the ordinary slimm_tpu_torch CLI "
                         "arguments")
@@ -124,7 +132,7 @@ def main(argv=None):
     world = (int(os.environ.get("WORLD_SIZE", 1)) if args.world_size is None
              else args.world_size)
     if world > 1:
-        initialize(None, args.init_method, world, args.rank)
+        initialize(args.backend, args.init_method, world, args.rank)
     rest = args.rest[1:] if args.rest[:1] == ["--"] else args.rest
     from ..cli import main as cli_main
     try:

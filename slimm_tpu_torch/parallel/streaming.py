@@ -19,9 +19,9 @@ JAX per-round plan agreement (`chunk_plan`) has no counterpart.
 
 from __future__ import annotations
 
-from slimm_tpu.config import EngineOptions, ProfileOptions
-from slimm_tpu.database import SlimmDatabase
-from slimm_tpu.state import ProfileState
+from ..config import EngineOptions, ProfileOptions
+from ..database import SlimmDatabase
+from ..state import ProfileState
 
 from ..engine.pipeline import profile_file_streaming
 

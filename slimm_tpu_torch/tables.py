@@ -3,7 +3,7 @@
 The profiler has no model weights; besides the records, the device holds
 these tables.  They are the arrays that slimm_tpu's profile_arrays hands to
 its jit (pipeline.py:1120-1125) plus the dense lineage and superkingdom
-codes of `slimm_tpu.database.tensorize`.
+codes of `database.tensorize`.
 """
 
 from __future__ import annotations

@@ -28,3 +28,27 @@ def cuda_time(fn, *args, reps: int = 5, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / 1e3)
     return float(np.median(times))
+
+
+def batch_time(fn, *args, reps: int = 20, rounds: int = 5,
+               sleep_cycles: int = 10_000_000) -> float:
+    """Median seconds per call of fn(*args), from CUDA events around `reps`
+    calls queued back to back.  A sleep kernel runs first in each round so
+    that the host queues the calls ahead of the card: a call shorter than
+    its own host enqueue is then timed by the card's work, not the host's."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("batch_time needs a CUDA device")
+    fn(*args)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        for _ in range(reps):
+            fn(*args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3 / reps)
+    return float(np.median(times))

@@ -20,11 +20,15 @@ from slimm_tpu.engine import reports as jax_reports
 from slimm_tpu.io import AlignmentFile
 from slimm_tpu.oracle import OracleProfiler
 from slimm_tpu_torch import cli as tcli
+from slimm_tpu_torch import oracle as toracle
+from slimm_tpu_torch.config import EngineOptions as TEngineOptions
+from slimm_tpu_torch.config import ProfileOptions as TProfileOptions
 from slimm_tpu_torch.engine import reports as treports
 from slimm_tpu_torch.engine.pipeline import profile_arrays, profile_file
 
 from tests import golden_adeno as GA
 from tests.test_engine import assert_states_equal
+from tests.test_torch_host import to_port
 from tests.test_fuzz import gen_case
 from tests.toy import build_toy_dataset, build_toy_db, make_records, write_sam
 
@@ -34,13 +38,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
 
 
-def _oracle(db, sam, options):
+def _oracle(db, sam, options, profiler=OracleProfiler):
     af = AlignmentFile(sam)
-    return OracleProfiler(copy.deepcopy(options), copy.deepcopy(db).ac__taxid,
-                          copy.deepcopy(db).taxid__name,
-                          list(zip(af.contig_names,
-                                   af.contig_lengths.tolist()))
-                          ).run(af.raw_records())
+    return profiler(copy.deepcopy(options), copy.deepcopy(db).ac__taxid,
+                    copy.deepcopy(db).taxid__name,
+                    list(zip(af.contig_names, af.contig_lengths.tolist()))
+                    ).run(af.raw_records())
 
 
 def _three_ways(db, sam, options=None, fetch_coverage=True):
@@ -50,8 +53,8 @@ def _three_ways(db, sam, options=None, fetch_coverage=True):
     st_o = _oracle(db, sam, options)
     st_j = jax_profile_file(copy.deepcopy(options), copy.deepcopy(db), sam,
                             engine=eng)
-    st_t = profile_file(copy.deepcopy(options), copy.deepcopy(db), sam,
-                        device=CPU, engine=eng)
+    st_t = profile_file(to_port(options), to_port(db), sam, device=CPU,
+                        engine=to_port(eng))
     return st_o, st_j, st_t
 
 
@@ -153,10 +156,10 @@ def test_raw_records_device_and_host_dedup(records, toy_dir):
     af = AlignmentFile(sam)
     batch = af.load(dedup=False)
     st_t = profile_arrays(
-        ProfileOptions(), copy.deepcopy(db), af.contig_names,
+        TProfileOptions(), to_port(db), af.contig_names,
         af.contig_lengths, batch.read_id.astype(np.int32), batch.rid,
         batch.pos, batch.n_reads, batch.hits_count, batch.avg_read_length,
-        device=CPU, engine=EngineOptions(phase_log=False), deduped=False)
+        device=CPU, engine=TEngineOptions(phase_log=False), deduped=False)
     assert_states_equal(_oracle(db, sam, ProfileOptions()), st_t)
 
 
@@ -178,15 +181,15 @@ def test_fuzz_cases_match_oracle(seed, path, tmp_path, toy_dir, monkeypatch):
         if path == "stream_v1":
             monkeypatch.setattr(tp, "V2_MAX_BIN", 0)
         st_t = tp.profile_file_streaming(
-            copy.deepcopy(options), copy.deepcopy(db), sam, device=CPU,
-            engine=EngineOptions(phase_log=False), chunk_targets=64)
+            to_port(options), to_port(db), sam, device=CPU,
+            engine=TEngineOptions(phase_log=False), chunk_targets=64)
         assert tp.path_counts["stream_files"] == 1
     else:
-        eng = EngineOptions(phase_log=False,
-                            overlap_min_bytes=int(path == "overlap"),
-                            overlap_piece_targets=2048)
-        st_t = profile_file(copy.deepcopy(options), copy.deepcopy(db), sam,
-                            device=CPU, engine=eng)
+        eng = TEngineOptions(phase_log=False,
+                             overlap_min_bytes=int(path == "overlap"),
+                             overlap_piece_targets=2048)
+        st_t = profile_file(to_port(options), to_port(db), sam, device=CPU,
+                            engine=eng)
         assert tp.path_counts["overlap_files"] == int(path == "overlap")
     if st_o.hits_count == 0:
         assert st_t.hits_count == 0
@@ -196,7 +199,7 @@ def test_fuzz_cases_match_oracle(seed, path, tmp_path, toy_dir, monkeypatch):
 
 def test_deep_bin_counts_exact():
     # 70,000 reads centered in ONE bin: int32 counts, no 16-bit fields
-    from slimm_tpu.database import SlimmDatabase
+    from slimm_tpu_torch.database import SlimmDatabase
 
     n = 70_000
     lineage = [9, 8, 7, 6, 5, 4, 3, 2]
@@ -204,11 +207,11 @@ def test_deep_bin_counts_exact():
     db.ac__taxid["c1"] = list(lineage)
     for lvl, tid in enumerate(lineage):
         db.taxid__name.setdefault(tid, (lvl, f"t{tid}"))
-    st = profile_arrays(ProfileOptions(), db, ["c1"],
+    st = profile_arrays(TProfileOptions(), db, ["c1"],
                         np.array([500], np.int64),
                         np.arange(n, dtype=np.int32), np.zeros(n, np.int32),
                         np.zeros(n, np.int32), n, n, 100, device=CPU,
-                        engine=EngineOptions(phase_log=False))
+                        engine=TEngineOptions(phase_log=False))
     assert int(st.cov[0]) == n and int(st.cov.sum()) == n
     assert int(st.uniq_cov[0]) == n
     assert int(st.reads_count[0]) == n == st.uniq_matches_count
@@ -219,9 +222,9 @@ def test_deep_bin_counts_exact():
 def test_golden_bytes(tmp_path):
     ds = GA.write_inputs(str(tmp_path / "in"))
     db = GA.build_adeno_db(ds)
-    opts = ProfileOptions(raw_output=True, coverage_output=True)
-    st = profile_file(opts, copy.deepcopy(db), ds.sam_path, device=CPU,
-                      engine=EngineOptions(phase_log=False))
+    opts = TProfileOptions(raw_output=True, coverage_output=True)
+    st = profile_file(opts, to_port(db), ds.sam_path, device=CPU,
+                      engine=TEngineOptions(phase_log=False))
     out = str(tmp_path / "out") + "/"
     treports.write_abundance(st, out, ds.sam_path)
     treports.write_raw_stat(st, out, ds.sam_path)
@@ -234,9 +237,14 @@ def test_golden_bytes(tmp_path):
 
 
 def test_report_writers_are_byte_identical(toy_dir, tmp_path):
+    # each package's writers on its own oracle's state
     options = ProfileOptions(raw_output=True, coverage_output=True)
-    st = _oracle(build_toy_db(toy_dir), toy_dir.sam_path, options)
+    db = build_toy_db(toy_dir)
+    states = {"jax": _oracle(db, toy_dir.sam_path, options),
+              "torch": _oracle(to_port(db), toy_dir.sam_path,
+                               to_port(options), toracle.OracleProfiler)}
     for tag, mod in (("jax", jax_reports), ("torch", treports)):
+        st = states[tag]
         out = str(tmp_path / tag) + "/"
         mod.write_abundance(st, out, toy_dir.sam_path)
         mod.write_raw_stat(st, out, toy_dir.sam_path)
@@ -395,41 +403,79 @@ def test_cli_collect(built_db, toy_dir, tmp_path):
     assert filecmp.cmp(tmp_path / "m.tsv", tmp_path / "j.tsv", shallow=False)
 
 
-# -- no JAX on the card's machine --------------------------------------------
+# -- nothing of JAX or of slimm_tpu on the card's machine ---------------------
 
 
 def test_port_sources_import_no_jax_or_engine():
+    # the port keeps its own copies of slimm_tpu's host modules: no import
+    # of jax, slimm_tpu (any module) or bench.py, which imports slimm_tpu
     import re
 
     forbidden = re.compile(
-        r"^\s*(import|from)\s+(jax|slimm_tpu\.(engine|ops|parallel"
-        r"|utils\.devbench))\b", re.M)
+        r"^\s*(import|from)\s+(jax|slimm_tpu|bench)\b(?!_)", re.M)
     pkg = os.path.join(REPO, "slimm_tpu_torch")
     sources = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
                if f.endswith(".py")]
-    assert len(sources) >= 10
+    assert len(sources) >= 20
     for path in sources + [os.path.join(REPO, "chip_smoke.py")]:
-        assert not forbidden.search(open(path).read()), path
+        text = open(path).read()
+        assert not forbidden.search(text), path
+        assert "import_module(" not in text, path
+    assert forbidden.search("from slimm_tpu.io import native")
+    assert forbidden.search("import slimm_tpu")
+    assert not forbidden.search("from slimm_tpu_torch.io import native")
 
 
 def test_toy_profile_runs_without_jax(built_db, toy_dir, tmp_path):
-    # the card's machine has no JAX: import the port and profile with jax
-    # made unimportable
+    # the card's machine has no JAX: with jax and slimm_tpu made
+    # unimportable, the port's CLI builds the DB, profiles whole-file,
+    # on the overlap path (overlap_min_bytes lowered) and with --stream,
+    # and collects; every file's bytes equal slimm_tpu's CLI
+    ds = toy_dir
     out = str(tmp_path / "nojax") + "/"
-    code = (
-        "import sys\n"
-        "sys.modules['jax'] = None\n"
-        "from slimm_tpu_torch.cli import main\n"
-        f"rc = main(['profile', '--device', 'cpu', '-o', {out!r}, "
-        f"{built_db!r}, {toy_dir.sam_path!r}])\n"
-        "assert not any(m == 'jax' or m.startswith(('jax.', 'slimm_tpu.engine',"
-        " 'slimm_tpu.ops', 'slimm_tpu.parallel')) for m in sys.modules "
-        "if sys.modules[m] is not None)\n"
-        "raise SystemExit(rc)\n")
+    code = f"""
+import functools, sys
+sys.modules['jax'] = None
+sys.modules['slimm_tpu'] = None
+from slimm_tpu_torch import cli
+from slimm_tpu_torch.engine import pipeline
+out = {out!r}
+db = out + 'toy.sldb'
+assert cli.main(['build', '-nm', {ds.names_path!r}, '-nd', {ds.nodes_path!r},
+                 '-o', db, {ds.fasta_path!r}, {ds.acc2taxid_path!r}]) == 0
+runs = {{'whole': ([], 'overlap_files', 0), 'stream': (['--stream', '600'],
+         'stream_files', 1), 'overlap': ([], 'overlap_files', 1)}}
+for tag, (extra, counter, want) in runs.items():
+    if tag == 'overlap':
+        cli.EngineOptions = functools.partial(
+            cli.EngineOptions, overlap_min_bytes=1, overlap_piece_targets=2048)
+    pipeline.reset_path_counts()
+    assert cli.main(['profile', '--device', 'cpu', *extra, '-o', out + tag,
+                     db, {ds.sam_path!r}]) == 0
+    assert pipeline.path_counts[counter] == want, (tag, pipeline.path_counts)
+assert cli.main(['collect', '-o', out + 'merged.tsv', out + 'whole_profile.tsv',
+                 out + 'stream_profile.tsv']) == 0
+assert not any(m in ('jax', 'slimm_tpu') or m.startswith(('jax.', 'slimm_tpu.'))
+               for m in sys.modules if sys.modules[m] is not None)
+"""
+    os.makedirs(out)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     ref = str(tmp_path / "ref") + "/"
-    assert jax_main(["profile", "-o", ref, built_db, toy_dir.sam_path]) == 0
-    assert filecmp.cmp(out + "toy-reads_profile.tsv",
-                       ref + "toy-reads_profile.tsv", shallow=False)
+    os.makedirs(ref)
+    assert jax_main(["build", "-nm", ds.names_path, "-nd", ds.nodes_path,
+                     "-o", ref + "toy.sldb", ds.fasta_path,
+                     ds.acc2taxid_path]) == 0
+    assert filecmp.cmp(out + "toy.sldb", ref + "toy.sldb", shallow=False)
+    for tag, extra in (("whole", []), ("stream", ["--stream", "600"])):
+        assert jax_main(["profile", *extra, "-o", ref + tag, ref + "toy.sldb",
+                         ds.sam_path]) == 0
+    assert jax_main(["collect", "-o", ref + "merged.tsv",
+                     ref + "whole_profile.tsv",
+                     ref + "stream_profile.tsv"]) == 0
+    for got, want in (("whole", "whole"), ("stream", "stream"),
+                      ("overlap", "whole")):
+        assert filecmp.cmp(out + got + "_profile.tsv",
+                           ref + want + "_profile.tsv", shallow=False), got
+    assert filecmp.cmp(out + "merged.tsv", ref + "merged.tsv", shallow=False)

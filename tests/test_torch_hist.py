@@ -160,3 +160,59 @@ def test_build_path_keyed_by_source_hash():
     assert path == _build.library_path()
     assert "-gencode" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+# -- the launch plan (ops/hist.py launch_plan; csrc/hist.cu's variants) -------
+
+H100 = dict(sms=132, smem_limit=232_448)
+
+
+@pytest.mark.parametrize("n,n_bins,hists,variant,blocks", [
+    # whole-file main path, 8M records: pass B [contigs | taxa] and the pair
+    # presence (1,000 contigs: 37,888 bins) in shared memory, pass A and the
+    # -ro/-co [uniq_cov2 | taxa] domain with global atomics
+    (8_000_000, 1_024, 1, "shared", 264),
+    (8_000_000, 7_103, 1, "shared", 264),
+    (8_000_000, 37_888, 1, "shared", 132),
+    (8_000_000, 396_190, 2, "global", 264),
+    (8_000_000, 403_243, 1, "global", 264),
+    (8_000_000, 8_366_436, 2, "global", 264),
+    (8_000_000, 16_384, 2, "shared", 132),
+    # an overlap-path piece: one quad per thread on 64 blocks
+    (1 << 18, 1_024, 1, "shared", 64),
+    (1 << 18, 7_103, 1, "shared", 64),
+    (1 << 18, 37_888, 1, "shared", 64),
+    (1 << 18, 57_000, 1, "global", 64),
+    (1 << 18, 396_190, 2, "global", 64),
+    (1 << 18, 403_243, 1, "global", 64),
+    (1 << 18, 8_366_436, 2, "global", 64),
+    # a toy file: too few records per bin for a private histogram
+    (1_000, 1_024, 1, "global", 1),
+])
+def test_launch_plan_variants(n, n_bins, hists, variant, blocks):
+    plan = th.launch_plan(n, n_bins, hists, **H100)
+    assert th.VARIANT_NAMES[plan.variant] == variant
+    assert plan.blocks == blocks and plan.threads == th.THREADS == 1024
+    word = 4 * hists
+    assert plan.smem == (n_bins * word if variant == "shared" else 0)
+
+
+def test_launch_plan_stays_within_limits():
+    rng = np.random.default_rng(12)
+    for _ in range(2000):
+        n = int(rng.integers(1, 1 << 24))
+        n_bins = int(rng.integers(1, 1 << 23))
+        hists = int(rng.integers(1, 3))
+        sms = int(rng.integers(1, 200))
+        smem_limit = int(rng.integers(1 << 10, 1 << 18))
+        plan = th.launch_plan(n, n_bins, hists, sms, smem_limit)
+        assert 0 <= plan.smem <= smem_limit
+        assert 1 <= plan.blocks <= max(1, sms * 2)
+        # no more threads than one quad of records each, beyond one block
+        assert plan.blocks == 1 or plan.blocks * plan.threads * 4 < n + 4096
+        if plan.variant == th.SHARED:
+            assert plan.smem == n_bins * 4 * hists
+            resident = (smem_limit + 1024) // (plan.smem + 1024)
+            assert plan.blocks <= sms * min(2, resident)
+        else:
+            assert plan.variant == th.GLOBAL and plan.smem == 0

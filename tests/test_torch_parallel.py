@@ -19,6 +19,8 @@ from slimm_tpu.config import EngineOptions, ProfileOptions
 from slimm_tpu.engine import pipeline as jp
 from slimm_tpu.parallel import ShardedRunner as JaxShardedRunner
 from slimm_tpu.parallel.mesh import route_shard as jax_route_shard
+from slimm_tpu_torch.config import EngineOptions as TEngineOptions
+from slimm_tpu_torch.config import ProfileOptions as TProfileOptions
 from slimm_tpu_torch.engine import pipeline as tp
 from slimm_tpu_torch.parallel import (MultiHostRunner, ShardedRunner,
                                       device_grid, route_shard, shard_paths)
@@ -26,6 +28,7 @@ from slimm_tpu_torch.parallel.runner import model_slices, route_piece
 from slimm_tpu_torch.tables import DeviceTables
 
 from tests.test_engine import assert_states_equal
+from tests.test_torch_host import to_port
 from tests.toy import build_toy_dataset, build_toy_db
 
 torch.set_num_threads(1)
@@ -40,6 +43,10 @@ def _t(a):
 
 def _eng(**kw):
     return EngineOptions(phase_log=False, **kw)
+
+
+def _teng(**kw):
+    return TEngineOptions(phase_log=False, **kw)
 
 
 # -- routing and grids --------------------------------------------------------
@@ -323,17 +330,17 @@ def test_sharded_profile_file_matches_jax(dataset, data, model,
                            engine=eng,
                            sharded_runner=JaxShardedRunner(
                                num_shards=data, model_shards=model))
-    st_t = tp.profile_file(ProfileOptions(), copy.deepcopy(db), ds.sam_path,
-                           engine=_eng(fetch_coverage=fetch_coverage,
-                                       overlap_min_bytes=1),
+    st_t = tp.profile_file(TProfileOptions(), to_port(db), ds.sam_path,
+                           engine=_teng(fetch_coverage=fetch_coverage,
+                                        overlap_min_bytes=1),
                            sharded_runner=ShardedRunner(
                                num_shards=data, model_shards=model,
                                device="cpu"))
     # a sharded profile_file never takes the overlap path
     assert tp.path_counts["sharded_files"] == 1
     assert tp.path_counts["overlap_files"] == 0
-    st_w = tp.profile_file(ProfileOptions(), copy.deepcopy(db), ds.sam_path,
-                           device=CPU, engine=eng)
+    st_w = tp.profile_file(TProfileOptions(), to_port(db), ds.sam_path,
+                           device=CPU, engine=to_port(eng))
     if fetch_coverage:
         assert_states_equal(st_j, st_t)
         assert_states_equal(st_w, st_t)
@@ -348,22 +355,23 @@ def test_sharded_profile_file_matches_jax(dataset, data, model,
 
 
 def test_multihost_runner_single_process(toy_dir):
-    # without a process group MultiHostRunner is a one-shard runner on the
-    # CPU; equal to the single-device engine
+    # without a process group MultiHostRunner is a one-shard runner, here
+    # on the CPU as asked; equal to the single-device engine
     db = build_toy_db(toy_dir)
-    r = MultiHostRunner()
+    r = MultiHostRunner(devices=["cpu"])
     assert not r.distributed and r.devices == [[CPU]]
     assert r.broadcast(7) == 7 and r.sum_totals(3, 4) == (3, 4)
-    st_m = tp.profile_file(ProfileOptions(), copy.deepcopy(db),
-                           toy_dir.sam_path, engine=_eng(), sharded_runner=r)
-    st_w = tp.profile_file(ProfileOptions(), copy.deepcopy(db),
-                           toy_dir.sam_path, device=CPU, engine=_eng())
+    st_m = tp.profile_file(TProfileOptions(), to_port(db),
+                           toy_dir.sam_path, engine=_teng(), sharded_runner=r)
+    st_w = tp.profile_file(TProfileOptions(), to_port(db),
+                           toy_dir.sam_path, device=CPU, engine=_teng())
     assert_states_equal(st_w, st_m)
 
 
 def test_profile_arrays_needs_one_target(toy_dir):
     with pytest.raises(ValueError, match="exactly one"):
-        tp.profile_arrays(ProfileOptions(), build_toy_db(toy_dir), ["c"],
+        tp.profile_arrays(TProfileOptions(), to_port(build_toy_db(toy_dir)),
+                          ["c"],
                           np.array([100]), [0], [0], [0], 1, 1, 100,
                           device=CPU, sharded_runner=ShardedRunner(
                               num_shards=2, device="cpu"))

@@ -27,12 +27,13 @@ def child(init_method, world, rank, work_dir, local_shards):
     world, rank, local_shards = int(world), int(rank), int(local_shards)
     import torch.distributed as dist
 
-    from slimm_tpu.config import EngineOptions, ProfileOptions
-    from slimm_tpu.database import SlimmDatabase
+    from slimm_tpu_torch.config import EngineOptions, ProfileOptions
+    from slimm_tpu_torch.database import SlimmDatabase
     from slimm_tpu_torch.engine import pipeline as tp
     from slimm_tpu_torch.parallel import MultiHostRunner, initialize
 
-    initialize(None, init_method, world, rank)
+    # the defaults are NCCL on the GPU: the CPU run asks for gloo
+    initialize("gloo", init_method, world, rank)
     try:
         assert dist.get_backend() == "gloo"
         db = SlimmDatabase.load(os.path.join(work_dir, "toy.sldb"))
@@ -114,6 +115,7 @@ def test_two_processes_match_one(case, toy_dir, tmp_path):
     from slimm_tpu.engine import pipeline as jp
     from slimm_tpu_torch.engine import pipeline as tp
     from tests.test_engine import assert_states_equal
+    from tests.test_torch_host import to_port
     from tests.toy import build_toy_db, write_sam
 
     db = build_toy_db(toy_dir)
@@ -128,9 +130,9 @@ def test_two_processes_match_one(case, toy_dir, tmp_path):
         eng = EngineOptions(phase_log=False, fetch_coverage=fc)
         one_j = jp.profile_file(ProfileOptions(), copy.deepcopy(db),
                                 toy_dir.sam_path, engine=eng)
-        one_t = tp.profile_file(ProfileOptions(), copy.deepcopy(db),
+        one_t = tp.profile_file(to_port(ProfileOptions()), to_port(db),
                                 toy_dir.sam_path, device=torch.device("cpu"),
-                                engine=eng)
+                                engine=to_port(eng))
         for rank, path in ((r, p) for r in range(2)
                            for p in ("whole", "stream")):
             got = states[rank][path, fc]
@@ -145,3 +147,46 @@ def test_two_processes_match_one(case, toy_dir, tmp_path):
                     assert want.taxon_id__children == got.taxon_id__children
                     np.testing.assert_array_equal(want.uniq_reads_count2,
                                                   got.uniq_reads_count2)
+
+
+def test_defaults_are_the_gpu(monkeypatch):
+    # initialize() and MultiHostRunner() default to NCCL and cuda:LOCAL_RANK;
+    # without a GPU and without asking for gloo or the CPU they raise
+    import torch.distributed as dist
+
+    from slimm_tpu_torch.parallel import MultiHostRunner, initialize
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initialize(init_method=f"tcp://127.0.0.1:{_free_port()}",
+                   world_size=1, rank=0)
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MultiHostRunner()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    calls = []
+    monkeypatch.setattr(torch.cuda, "set_device", calls.append)
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda *a, **kw: calls.append((a, kw)))
+    initialize(init_method="tcp://h:1", world_size=4, rank=1)
+    assert calls == [torch.device("cuda", 3),
+                     (("nccl",), dict(init_method="tcp://h:1", world_size=4,
+                                      rank=1))]
+
+
+def test_gloo_and_cpu_when_asked():
+    # a world of one over gloo, the runner on the CPU: both as asked
+    import torch.distributed as dist
+
+    from slimm_tpu_torch.parallel import MultiHostRunner, initialize
+
+    initialize("gloo", f"tcp://127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        assert dist.get_backend() == "gloo"
+        runner = MultiHostRunner(devices=["cpu", "cpu"])
+        assert runner.distributed and runner.data_shards == 2
+        assert runner.devices == [[torch.device("cpu")]] * 2
+        assert runner.sum_totals(3, 4) == (3, 4) and runner.broadcast(9) == 9
+    finally:
+        dist.destroy_process_group()

@@ -7,7 +7,6 @@ runs on its 8 virtual CPU devices; every comparison is exact."""
 import copy
 import filecmp
 import os
-import subprocess
 
 import numpy as np
 import pytest
@@ -15,17 +14,20 @@ import torch
 
 from slimm_tpu.cli import main as jax_main
 from slimm_tpu.config import EngineOptions, ProfileOptions
-from slimm_tpu.io import native
 from slimm_tpu.parallel import ShardedRunner as JaxShardedRunner
 from slimm_tpu.parallel.streaming import profile_file_streaming_sharded
 from slimm_tpu_torch import cli as tcli
+from slimm_tpu_torch.config import EngineOptions as TEngineOptions
+from slimm_tpu_torch.config import ProfileOptions as TProfileOptions
 from slimm_tpu_torch.engine import pipeline as tp
+from slimm_tpu_torch.io import native
 from slimm_tpu_torch.parallel import ShardedRunner
 from slimm_tpu_torch.parallel.multihost import main as multihost_main
 from slimm_tpu_torch.parallel.streaming import (
     profile_file_streaming_sharded as t_streaming_sharded)
 
 from tests.test_engine import assert_states_equal
+from tests.test_torch_host import to_port
 from tests.toy import build_toy_dataset, build_toy_db, write_sam
 
 torch.set_num_threads(1)
@@ -36,12 +38,8 @@ GRIDS = [(2, 2), (4, 1), (1, 4)]
 
 @pytest.fixture(scope="module", autouse=True)
 def ensure_native_built():
-    if not native.available():
-        from slimm_tpu.io.native_build import build
-        try:
-            build(verbose=False)
-        except (subprocess.CalledProcessError, FileNotFoundError):
-            pytest.skip("native toolchain unavailable")
+    # the port's own decoder, built from native/ into slimm_tpu_torch/_build/
+    native.build()
 
 
 @pytest.fixture(autouse=True)
@@ -51,6 +49,10 @@ def fresh_counts():
 
 def _eng(**kw):
     return EngineOptions(phase_log=False, **kw)
+
+
+def _teng(**kw):
+    return TEngineOptions(phase_log=False, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -78,9 +80,9 @@ def _both(db, path, data, model, eng, chunk):
     # the port's entry point of the same name: profile_file_streaming with
     # a sharded_runner
     st_t = t_streaming_sharded(
-        ProfileOptions(), copy.deepcopy(db), path,
+        TProfileOptions(), to_port(db), path,
         ShardedRunner(num_shards=data, model_shards=model, device="cpu"),
-        engine=eng, chunk_targets=chunk)
+        engine=to_port(eng), chunk_targets=chunk)
     return st_j, st_t
 
 
@@ -113,8 +115,8 @@ def test_sharded_streaming_matches_jax(data, model, case, big_ds, toy_dir,
     else:
         assert counts["pass_b_reuploads"] == 0
     assert_states_equal(st_j, st_t)
-    st_w = tp.profile_file(ProfileOptions(), copy.deepcopy(db), path,
-                           device=CPU, engine=_eng(overlap_min_bytes=0))
+    st_w = tp.profile_file(TProfileOptions(), to_port(db), path,
+                           device=CPU, engine=_teng(overlap_min_bytes=0))
     assert_states_equal(st_w, st_t)
 
 
@@ -135,8 +137,8 @@ def test_sharded_streaming_gives_way(cause, toy_dir, monkeypatch):
     # each cause is counted, bin_width is restored, and the file is profiled
     # whole over the same grid
     db = build_toy_db(toy_dir)
-    st_w = tp.profile_file(ProfileOptions(), copy.deepcopy(db),
-                           toy_dir.sam_path, device=CPU, engine=_eng())
+    st_w = tp.profile_file(TProfileOptions(), to_port(db),
+                           toy_dir.sam_path, device=CPU, engine=_teng())
     if cause == "no_native":
         monkeypatch.setattr(native, "available", lambda: False)
     else:
@@ -146,9 +148,9 @@ def test_sharded_streaming_gives_way(cause, toy_dir, monkeypatch):
             raise ValueError("input is not qname-grouped")
 
         monkeypatch.setattr(native.NativeStreamReader, "next_piece_v2", fail)
-    options = ProfileOptions()
+    options = TProfileOptions()
     st = tp.profile_file_streaming(
-        options, copy.deepcopy(db), toy_dir.sam_path, engine=_eng(),
+        options, to_port(db), toy_dir.sam_path, engine=_teng(),
         chunk_targets=512,
         sharded_runner=ShardedRunner(num_shards=2, model_shards=2,
                                      device="cpu"))
@@ -172,9 +174,9 @@ def test_streaming_across_processes_raises_instead_of_falling_back(
     monkeypatch.setattr(native, "available", lambda: False)
     with pytest.raises(ValueError, match="across processes"):
         tp.profile_file_streaming(
-            ProfileOptions(), build_toy_db(toy_dir), toy_dir.sam_path,
-            engine=_eng(), sharded_runner=Distributed(num_shards=2,
-                                                      device="cpu"))
+            TProfileOptions(), to_port(build_toy_db(toy_dir)),
+            toy_dir.sam_path, engine=_teng(),
+            sharded_runner=Distributed(num_shards=2, device="cpu"))
     assert tp.path_counts["stream_fallback_no_native"] == 1
 
 

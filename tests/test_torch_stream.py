@@ -19,11 +19,14 @@ import jax.numpy as jnp
 
 from slimm_tpu.config import EngineOptions, ProfileOptions
 from slimm_tpu.engine import pipeline as jp
-from slimm_tpu.io import native
+from slimm_tpu_torch.config import EngineOptions as TEngineOptions
+from slimm_tpu_torch.config import ProfileOptions as TProfileOptions
 from slimm_tpu_torch.engine import pipeline as tp
+from slimm_tpu_torch.io import native
 from slimm_tpu_torch.tables import DeviceTables
 
 from tests.test_engine import assert_states_equal
+from tests.test_torch_host import to_port
 from tests.toy import build_toy_dataset, build_toy_db, write_bam, write_sam
 
 torch.set_num_threads(1)
@@ -34,12 +37,8 @@ CPU = torch.device("cpu")
 
 @pytest.fixture(scope="session", autouse=True)
 def ensure_native_built():
-    if not native.available():
-        from slimm_tpu.io.native_build import build
-        try:
-            build(verbose=False)
-        except (subprocess.CalledProcessError, FileNotFoundError):
-            pytest.skip("native toolchain unavailable")
+    # the port's own decoder, built from native/ into slimm_tpu_torch/_build/
+    native.build()
 
 
 @pytest.fixture(autouse=True)
@@ -51,18 +50,23 @@ def _eng(**kw):
     return EngineOptions(phase_log=False, **kw)
 
 
+def _teng(**kw):
+    return TEngineOptions(phase_log=False, **kw)
+
+
 def _jax_and_port(jax_fn, port_fn, db, path, options=None, **kw):
     options = options or ProfileOptions()
     st_j = jax_fn(copy.deepcopy(options), copy.deepcopy(db), path, **kw)
-    st_t = port_fn(copy.deepcopy(options), copy.deepcopy(db), path,
-                   device=CPU, **kw)
+    st_t = port_fn(to_port(options), to_port(db), path, device=CPU,
+                   **{k: to_port(v) if k == "engine" else v
+                      for k, v in kw.items()})
     return st_j, st_t
 
 
 def _port_whole(db, path, options=None):
-    return tp.profile_file(copy.deepcopy(options or ProfileOptions()),
-                           copy.deepcopy(db), path, device=CPU,
-                           engine=_eng(overlap_min_bytes=0))
+    return tp.profile_file(to_port(options or ProfileOptions()),
+                           to_port(db), path, device=CPU,
+                           engine=_teng(overlap_min_bytes=0))
 
 
 def _assert_abundance_equal(st_a, st_b):
@@ -253,8 +257,8 @@ def test_overlap_matches_jax_and_whole_file(case, tmp_path, monkeypatch):
     eng = _eng(overlap_min_bytes=1, overlap_piece_targets=2048)
     st_j = jp._profile_file_overlap(ProfileOptions(), copy.deepcopy(db), path,
                                     eng)
-    st_t = tp.profile_file(ProfileOptions(), copy.deepcopy(db), path,
-                           device=CPU, engine=eng)
+    st_t = tp.profile_file(TProfileOptions(), to_port(db), path,
+                           device=CPU, engine=to_port(eng))
     assert st_j is not None
     assert tp.path_counts["overlap_files"] == 1
     assert tp.path_counts["overlap_pieces"] == len(windows) >= 2
@@ -268,12 +272,12 @@ def test_overlap_default_piece_size_and_small_files(toy_dir):
     # below overlap_min_bytes the whole-file path runs; at the default piece
     # cap a toy file is one piece
     db = build_toy_db(toy_dir)
-    st_w = tp.profile_file(ProfileOptions(), copy.deepcopy(db),
-                           toy_dir.sam_path, device=CPU, engine=_eng())
+    st_w = tp.profile_file(TProfileOptions(), to_port(db),
+                           toy_dir.sam_path, device=CPU, engine=_teng())
     assert tp.path_counts["overlap_files"] == 0
-    st_o = tp.profile_file(ProfileOptions(), copy.deepcopy(db),
+    st_o = tp.profile_file(TProfileOptions(), to_port(db),
                            toy_dir.sam_path, device=CPU,
-                           engine=_eng(overlap_min_bytes=1))
+                           engine=_teng(overlap_min_bytes=1))
     assert tp.path_counts["overlap_files"] == 1
     assert tp.path_counts["overlap_pieces"] == 1
     assert_states_equal(st_w, st_o)
@@ -284,14 +288,14 @@ def test_overlap_gives_way_past_uint16(toy_dir, monkeypatch):
     # it was, and profile_file takes the whole-file path
     db = build_toy_db(toy_dir)
     monkeypatch.setattr(tp, "V2_MAX_BIN", 0)
-    options = ProfileOptions()
-    assert tp._profile_file_overlap(options, copy.deepcopy(db),
+    options = TProfileOptions()
+    assert tp._profile_file_overlap(options, to_port(db),
                                     toy_dir.sam_path, device=CPU,
-                                    engine=_eng()) is None
+                                    engine=_teng()) is None
     assert options.bin_width == 0
-    st = tp.profile_file(ProfileOptions(), copy.deepcopy(db),
+    st = tp.profile_file(TProfileOptions(), to_port(db),
                          toy_dir.sam_path, device=CPU,
-                         engine=_eng(overlap_min_bytes=1))
+                         engine=_teng(overlap_min_bytes=1))
     assert tp.path_counts["overlap_fallback_bins_past_uint16"] == 2
     assert tp.path_counts["overlap_files"] == 0
     assert_states_equal(_port_whole(db, toy_dir.sam_path), st)
@@ -392,8 +396,8 @@ def test_streaming_long_reads_over_pieces(v1, long_sam, toy_dir,
         return piece_pass_a(*args, window=window, **kw)
 
     monkeypatch.setattr(tp, "piece_pass_a_acc", record_plan)
-    st_t = tp.profile_file_streaming(ProfileOptions(), copy.deepcopy(db),
-                                     long_sam, device=CPU, engine=_eng(),
+    st_t = tp.profile_file_streaming(TProfileOptions(), to_port(db),
+                                     long_sam, device=CPU, engine=_teng(),
                                      chunk_targets=300)
     assert tp.path_counts["stream_chunks_v1" if v1 else
                           "stream_chunks_v2"] == len(windows) >= 2
@@ -458,10 +462,10 @@ def test_late_regroup_falls_back(tmp_path, monkeypatch):
                                engine=_eng(), chunk_targets=8192)
     assert tp.path_counts["stream_files"] == 0
     assert_states_equal(st_j, st_t)
-    options = ProfileOptions()
+    options = TProfileOptions()
     assert tp._profile_file_overlap(
-        options, copy.deepcopy(db), sam, device=CPU,
-        engine=_eng(overlap_piece_targets=8192)) is None
+        options, to_port(db), sam, device=CPU,
+        engine=_teng(overlap_piece_targets=8192)) is None
     assert options.bin_width == 0
     assert tp.path_counts["overlap_fallback_not_grouped"] == 1
 
@@ -475,8 +479,8 @@ def test_streamed_paths_zero_mapped(path, toy_dir, tmp_path):
     if path == "overlap":
         st_j = jp._profile_file_overlap(ProfileOptions(), copy.deepcopy(db),
                                         sam, _eng())
-        st_t = tp._profile_file_overlap(ProfileOptions(), copy.deepcopy(db),
-                                        sam, device=CPU, engine=_eng())
+        st_t = tp._profile_file_overlap(TProfileOptions(), to_port(db),
+                                        sam, device=CPU, engine=_teng())
     else:
         st_j, st_t = _jax_and_port(jp.profile_file_streaming,
                                    tp.profile_file_streaming, db, sam,
@@ -490,12 +494,12 @@ def test_give_way_without_native_decoder(toy_dir, monkeypatch):
     db = build_toy_db(toy_dir)
     st_w = _port_whole(db, toy_dir.sam_path)
     monkeypatch.setattr(native, "available", lambda: False)
-    st_o = tp.profile_file(ProfileOptions(), copy.deepcopy(db),
+    st_o = tp.profile_file(TProfileOptions(), to_port(db),
                            toy_dir.sam_path, device=CPU,
-                           engine=_eng(overlap_min_bytes=1))
-    st_s = tp.profile_file_streaming(ProfileOptions(), copy.deepcopy(db),
+                           engine=_teng(overlap_min_bytes=1))
+    st_s = tp.profile_file_streaming(TProfileOptions(), to_port(db),
                                      toy_dir.sam_path, device=CPU,
-                                     engine=_eng(overlap_min_bytes=1))
+                                     engine=_teng(overlap_min_bytes=1))
     # streaming gives way to profile_file, whose overlap path gives way too
     assert tp.path_counts["overlap_fallback_no_native"] == 2
     assert tp.path_counts["stream_files"] == 0
@@ -513,10 +517,10 @@ def test_give_way_on_overflow(toy_dir, monkeypatch):
         raise OverflowError("single read exceeds the piece cap")
 
     monkeypatch.setattr(native.NativeStreamReader, "next_piece_v2", overflow)
-    options = ProfileOptions()
-    assert tp._profile_file_overlap(options, copy.deepcopy(db),
+    options = TProfileOptions()
+    assert tp._profile_file_overlap(options, to_port(db),
                                     toy_dir.sam_path, device=CPU,
-                                    engine=_eng()) is None
+                                    engine=_teng()) is None
     assert options.bin_width == 0
     assert tp.path_counts["overlap_fallback_overflow"] == 1
     st_j, st_t = _jax_and_port(jp.profile_file_streaming,
@@ -535,9 +539,10 @@ def test_streamed_paths_run_without_jax(toy_dir, tmp_path):
     code = (
         "import copy, sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['slimm_tpu'] = None\n"
         "import torch\n"
-        "from slimm_tpu.config import EngineOptions, ProfileOptions\n"
-        "from slimm_tpu.database import SlimmDatabase\n"
+        "from slimm_tpu_torch.config import EngineOptions, ProfileOptions\n"
+        "from slimm_tpu_torch.database import SlimmDatabase\n"
         "from slimm_tpu_torch.engine import pipeline as tp\n"
         f"db = SlimmDatabase.load({db_path!r})\n"
         "cpu = torch.device('cpu')\n"
@@ -549,9 +554,8 @@ def test_streamed_paths_run_without_jax(toy_dir, tmp_path):
         f"{toy_dir.sam_path!r}, device=cpu, engine=eng, chunk_targets=512)\n"
         "assert tp.path_counts['overlap_files'] == 1\n"
         "assert tp.path_counts['stream_files'] == 1\n"
-        "assert not any(m == 'jax' or m.startswith(('jax.', 'slimm_tpu.engine',"
-        " 'slimm_tpu.ops', 'slimm_tpu.parallel')) for m in sys.modules "
-        "if sys.modules[m] is not None)\n"
+        "assert not any(m in ('jax', 'slimm_tpu') or m.startswith(('jax.', "
+        "'slimm_tpu.')) for m in sys.modules if sys.modules[m] is not None)\n"
         "print(repr(a.abundance_rows()))\n"
         "print(repr(b.abundance_rows()))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
