@@ -49,6 +49,21 @@ Phases, each timed; any failure raises and the script exits non-zero:
            path counts reset and read around it, against the same command
            with --device cpu; `--shards 2`, which on a one-GPU machine must
            exit 1 with the device count, and elsewhere equal the TSV
+  dir      `profile -d` on a directory of 16 SAMs of 100,000 records (seeds
+           100-115, one header: the bench's 50-contig database), batched in
+           groups of 8 (engine.pipeline.profile_files_batched: each group one
+           profile, one launch per histogram) and as a per-file loop
+           (files_per_dispatch=1): the TSVs equal, and equal to a --device
+           cpu run of two of the files; the launch and group counters of
+           each run read; seconds of both ways, median of 3 after a warm
+           run, in turns, beside a decode-only floor.  The histogram
+           inputs of one group of 8 are captured and each kernel held
+           against its plain version on them
+  trace    `profile --trace-dir` on the 1M-record SAM: the TSV equal to the
+           untraced run's, and the Chrome trace names both kernels'
+           __global__ functions (torch.profiler sees the kernels launched
+           through ctypes); the device events' time over the traced
+           window (the device's busy share) and the traced run's seconds
   multi    processes over torch.distributed on the 1M-record SAM split by
            read into one SAM per process: a one-process NCCL world on the
            whole SAM and a two-process gloo world on cuda:0 tensors (NCCL
@@ -94,6 +109,9 @@ SHARDED_FILES = (2, 2)
 ROUTE_PIECE = 1 << 19
 ROUTE_REPS = 10
 CHILD_TIMEOUT = 300
+DIR_SEEDS = range(100, 116)
+DIR_RECORDS = 100_000
+DIR_REPS = 3
 
 # kernel launches of the path runs (not of the kernel comparisons), summed
 # over the phases: each run resets the counts before it and adds them after
@@ -183,16 +201,10 @@ def _load_toy():
     return mod
 
 
-def capture_main_path(torch, np, pipeline, device):
-    """The histogram inputs of fused_profile on the 8M x 50 workload, as the
-    main path hands them to the kernels: pass A's (bins, nondup, unique),
-    pass B's combined index (pipeline.py _pass_b_local) and the pair index,
-    and with -ro/-co pass B's [uniq_cov2 | taxa] index."""
-    from slimm_tpu_torch.utils import workload
-
-    args, tables, plan, _ = core_inputs(
-        torch, np, pipeline, workload.make_workload(RECORDS, 50, seed=0), 50,
-        device)
+@contextlib.contextmanager
+def recorded_hists(pipeline):
+    """The pipeline's histogram calls while the body runs, as (kernel, idx,
+    w1, w2, n_bins) with the tensors cloned; each call still runs."""
     calls = []
     hist1, hist2 = pipeline.hist1, pipeline.hist2
 
@@ -206,11 +218,25 @@ def capture_main_path(torch, np, pipeline, device):
 
     pipeline.hist1, pipeline.hist2 = rec1, rec2
     try:
+        yield calls
+    finally:
+        pipeline.hist1, pipeline.hist2 = hist1, hist2
+
+
+def capture_main_path(torch, np, pipeline, device):
+    """The histogram inputs of fused_profile on the 8M x 50 workload, as the
+    main path hands them to the kernels: pass A's (bins, nondup, unique),
+    pass B's combined index (pipeline.py _pass_b_local) and the pair index,
+    and with -ro/-co pass B's [uniq_cov2 | taxa] index."""
+    from slimm_tpu_torch.utils import workload
+
+    args, tables, plan, _ = core_inputs(
+        torch, np, pipeline, workload.make_workload(RECORDS, 50, seed=0), 50,
+        device)
+    with recorded_hists(pipeline) as calls:
         for emit_coverage in (False, True):
             pipeline.fused_profile(*args, tables, emit_coverage=emit_coverage,
                                    **plan)
-    finally:
-        pipeline.hist1, pipeline.hist2 = hist1, hist2
     kinds = [c[0] for c in calls]
     require(kinds == ["hist2", "hist1", "hist1"] * 2,
             f"fused_profile called the histograms as {kinds}")
@@ -799,6 +825,177 @@ def cli_phase(hist, tmp, device_args):
     return launches, (w, db, sam)
 
 
+def quiet_cli(cli, argv):
+    """cli.main(argv) with its stderr (phase logs, one block per file)
+    kept; on a non-zero exit the end of it is raised."""
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise RuntimeError(f"profile {argv} exited {rc}:\n"
+                           f"{err.getvalue()[-3000:]}")
+
+
+def dir_phase(torch, np, pipeline, hist, batch_time, tmp, bench_files, smi):
+    """`profile -d` on 16 SAMs of one header, batched (groups of
+    files_per_dispatch) and as a per-file loop (files_per_dispatch=1),
+    against each other and a --device cpu run of two files; the kernels
+    held against their plain versions on one group's histogram inputs.
+    Returns the kernel rows."""
+    import functools
+
+    from slimm_tpu_torch import cli
+    from slimm_tpu_torch.config import EngineOptions, ProfileOptions
+    from slimm_tpu_torch.database import SlimmDatabase
+    from slimm_tpu_torch.utils import workload
+
+    t0 = time.perf_counter()
+    w0, db_path, _ = bench_files
+    d = os.path.join(tmp, "dir")
+    indir = os.path.join(d, "in")
+    os.makedirs(indir)
+    mb = 0.0
+    for seed in DIR_SEEDS:
+        w = workload.make_workload(DIR_RECORDS, 50, seed=seed)
+        # one header for every file, the bench database's contigs: the
+        # positions are drawn again within them
+        pos = (np.random.default_rng(seed).random(len(w["rid"]))
+               * (w0["lengths"][w["rid"]] - w["avg_read_len"])
+               ).astype(np.int32)
+        mb += workload.write_bench_sam(
+            os.path.join(indir, f"s{seed}.sam"),
+            dict(w, lengths=w0["lengths"], pos=pos), 50)
+    names = sorted(os.listdir(indir))
+    log(f"  wrote {len(names)} SAMs of {DIR_RECORDS} records ({mb:.1f} MB): "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    engine_cls = cli.EngineOptions
+    per_group = engine_cls().files_per_dispatch
+    ways = {"batched": (engine_cls, -(-len(names) // per_group)),
+            "per_file": (functools.partial(engine_cls, files_per_dispatch=1),
+                         len(names))}
+    secs = {way: [] for way in ways}
+    try:
+        # a warm run of each way, then DIR_REPS turns of both
+        for rep in range(DIR_REPS + 1):
+            for way, (engine, groups) in ways.items():
+                cli.EngineOptions = engine
+                hist.reset_launch_counts()
+                pipeline.reset_path_counts()
+                c0 = time.perf_counter()
+                quiet_cli(cli, ["profile", "-d", "-o",
+                                os.path.join(d, way) + "/", db_path, indir])
+                secs[way].append(time.perf_counter() - c0)
+                launches = add_launches(hist)
+                require(pipeline.path_counts["batched_groups"] == groups
+                        and launches == (2 * groups, groups),
+                        f"-d {way}: {pipeline.path_counts['batched_groups']} "
+                        f"groups, launches (hist1, hist2) = {launches}; "
+                        f"want {groups} groups, ({2 * groups}, {groups})")
+    finally:
+        cli.EngineOptions = engine_cls
+
+    # two of the files on the CPU, batched there too
+    two = os.path.join(d, "two")
+    os.makedirs(two)
+    for name in names[:2]:
+        os.link(os.path.join(indir, name), os.path.join(two, name))
+    quiet_cli(cli, ["profile", "--device", "cpu", "-d", "-o",
+                    os.path.join(d, "cpu") + "/", db_path, two])
+    for name in names:
+        tsv = name[:-len(".sam")] + "_profile.tsv"
+        got = open(os.path.join(d, "batched", tsv), "rb").read()
+        require(got.count(b"\n") > 2, f"-d: {tsv} is empty")
+        require(got == open(os.path.join(d, "per_file", tsv), "rb").read(),
+                f"-d: {tsv} differs between batched and per-file")
+        if name in names[:2]:
+            require(got == open(os.path.join(d, "cpu", tsv), "rb").read(),
+                    f"-d: {tsv} differs between cuda and cpu")
+    med = {way: float(np.median(t[1:])) for way, t in secs.items()}
+    # what no way of profiling saves: decoding every file whole
+    floor = []
+    for _ in range(DIR_REPS):
+        c0 = time.perf_counter()
+        for name in names:
+            pipeline.open_alignment_file(os.path.join(indir, name)).load()
+        floor.append(time.perf_counter() - c0)
+    log(f"  -d TSVs equal: batched == per-file loop for {len(names)} files, "
+        f"== --device cpu for {names[0]} and {names[1]}")
+    log(smi)
+    for way, (_, groups) in ways.items():
+        log(f"  -d {way:8s} ({groups} groups, launches hist1={2 * groups} "
+            f"hist2={groups}): {' / '.join(f'{x:.3f}' for x in secs[way])} "
+            f"s (first warm); median {med[way]:.3f} s, "
+            f"{med[way] / len(names) * 1e3:.2f} ms per file")
+    log(f"  -d decode-only floor (open_alignment_file(path).load() of each "
+        f"file): {' / '.join(f'{x:.3f}' for x in floor)} s")
+
+    # the kernels on the histogram inputs of one group
+    paths = [os.path.join(indir, name) for name in names[:per_group]]
+    with recorded_hists(pipeline) as calls:
+        pipeline.profile_files_batched(
+            ProfileOptions(), SlimmDatabase.load(db_path), paths,
+            engine=EngineOptions(fetch_coverage=False, phase_log=False))
+    kinds = [c[0] for c in calls]
+    require(kinds == ["hist2", "hist1", "hist1"],
+            f"a batched group called the histograms as {kinds}")
+    rows = [kernel_case(torch, hist, batch_time, f"dir{per_group}_{case}",
+                        *call)
+            for case, call in zip(("passA_real", "passB_real", "pairs_real"),
+                                  calls)]
+    phase("dir", t0)
+    return rows
+
+
+def trace_phase(hist, tmp, bench_files, smi):
+    """`profile --trace-dir` on the card: the TSV of the untraced CLI run,
+    and a trace that names both kernels."""
+    from slimm_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    _, db, sam = bench_files
+    d = os.path.join(tmp, "trace")
+    hist.reset_launch_counts()
+    c0 = time.perf_counter()
+    quiet_cli(cli, ["profile", "--trace-dir", d, "-o", d + "/out/", db, sam])
+    secs = time.perf_counter() - c0
+    launches = add_launches(hist)
+    got = open(d + "/out/bench_profile.tsv", "rb").read()
+    want = open(os.path.join(tmp, "bench", "gpu", "bench_profile.tsv"),
+                "rb").read()
+    require(got == want, "--trace-dir: TSV differs from the untraced run's")
+    path = os.path.join(d, os.path.basename(sam) + ".pt.trace.json")
+    events = json.load(open(path))["traceEvents"]
+    on_card = [e for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    # the port's kernels, by their names in csrc/hist.cu (an anonymous
+    # namespace there)
+    ours = {}
+    for e in on_card:
+        name = e["name"].replace("(anonymous namespace)::", "")
+        if e["cat"] == "kernel" and name.startswith(
+                ("hist1_", "hist2_", "split_packed")):
+            name = name.split("(")[0]
+            ours[name] = ours.get(name, 0) + 1
+    for prefix in ("hist2_", "hist1_"):
+        require(any(name.startswith(prefix) for name in ours),
+                f"--trace-dir: no {prefix}* kernel in the trace: {ours}")
+    device_ms = sum(e.get("dur", 0) for e in on_card) / 1e3
+    # the traced window: the file's profile, decode included
+    stamped = [e for e in events if "ts" in e and e.get("ph") == "X"]
+    span_ms = (max(e["ts"] + e.get("dur", 0) for e in stamped)
+               - min(e["ts"] for e in stamped)) / 1e3
+    log(smi)
+    log(f"  --trace-dir on the 1M-record SAM: TSV equal, "
+        f"{os.path.getsize(path) / 2**20:.1f} MB trace, {len(on_card)} "
+        f"device events ({device_ms:.3f} ms of kernels and copies in a "
+        f"{span_ms:.3f} ms traced window: device busy "
+        f"{device_ms / span_ms:.1%}), CLI {secs:.3f} s; launches "
+        f"hist1={launches[0]} hist2={launches[1]}; the port's kernels in "
+        f"the trace {ours}")
+    phase("trace", t0)
+
+
 def multi_child(backend, init_method, world, rank, db_path, sam, out_dir):
     """One process of a torch.distributed world: `sam` profiled through
     MultiHostRunner whole-file and streamed, each TSV written under
@@ -991,6 +1188,9 @@ def main() -> int:
     try:
         stream_phase(torch, np, pipeline, hist, tmp, "cuda", smi[0])
         main_launches, bench_files = cli_phase(hist, tmp, [])
+        rows += dir_phase(torch, np, pipeline, hist, batch_time, tmp,
+                          bench_files, smi[0])
+        trace_phase(hist, tmp, bench_files, smi[0])
         multi_phase(np, pipeline, tmp, bench_files)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -7,10 +7,19 @@ own copy of slimm_tpu's, each module naming its source at its top.
 
 Layout:
   cli              `python -m slimm_tpu_torch profile|build|collect`
-  config, database, state, oracle, taxonomy, io, tools.collect
-                   the host layer (copies)
-  tables           the per-contig and taxonomy tables on the device
-  engine.pipeline  pass A, cutoffs, pass B, packing, host glue
+                   (`-d` batched on one device, `--trace-dir` through
+                   torch.profiler)
+  config, database, state, oracle, taxonomy, io, tools.collect,
+  tools.preprocess, misc_compat
+                   the host layer (copies; `python -m
+                   slimm_tpu_torch.tools.preprocess` prepares reference
+                   databases)
+  tables           the per-contig and taxonomy tables on the device, for
+                   one file or a group of files laid end to end
+  engine.pipeline  pass A, cutoffs, pass B, packing, host glue; the entry
+                   points profile_arrays, profile_file,
+                   profile_file_streaming and profile_files_batched run on
+                   the card unless given another device
   engine.reports   the TSV writers
   ops.hist         hist1 / hist2: plain PyTorch versions, CUDA wrappers and
                    their launch plan

@@ -10,16 +10,22 @@ CPU.  `--stream N` profiles each file by chunk streaming; files of 64 MB or
 more take the overlap path by default.  `--shards D` / `--model-shards M`
 above 1 profile over a (data x model) grid of devices
 (slimm_tpu_torch.parallel): cuda:0 .. cuda:D*M-1, more than the host has
-being an error, or the CPU D*M times over with `--device cpu`.  The option
-of slimm_tpu's parser that the port does not have yet (`--trace-dir`) is
-refused.
+being an error, or the CPU D*M times over with `--device cpu`.  `-d` on one
+device profiles the directory's files in groups of
+`EngineOptions.files_per_dispatch`, each group as one profile
+(engine.pipeline.profile_files_batched), as slimm_tpu's `-d` does.
+`--trace-dir DIR` runs each file's profile inside torch.profiler and writes
+one Chrome trace per input into DIR (CUDA activity too on the card); it
+profiles file by file, as in slimm_tpu.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
+import os
 import sys
 
 from . import __version__
@@ -182,11 +188,28 @@ def cmd_collect(args) -> int:
     return 0
 
 
-def _not_ported(args) -> str | None:
-    """The first given option that belongs to a later part of the port."""
-    if args.trace_dir is not None:
-        return "--trace-dir"
-    return None
+@contextlib.contextmanager
+def _traced(trace_dir, path, cuda):
+    """The body inside torch.profiler, then its Chrome trace written to
+    <trace_dir>/<input file name>.pt.trace.json: the counterpart of
+    slimm_tpu's jax.profiler.start_trace/stop_trace around each file
+    (slimm_tpu/cli.py:223-246).  CPU activity always, CUDA activity with
+    `cuda`.  A trace that cannot be written raises OSError."""
+    if trace_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(trace_dir, exist_ok=True)
+    out = os.path.join(trace_dir, os.path.basename(path) + ".pt.trace.json")
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(out)
+    if not os.path.isfile(out):
+        raise OSError(f"--trace-dir: no trace written to {out}")
 
 
 def _json_stats(state, path) -> dict:
@@ -208,11 +231,6 @@ def _json_stats(state, path) -> dict:
 
 
 def cmd_profile(args) -> int:
-    option = _not_ported(args)
-    if option is not None:
-        print(f"[ERROR] {option} is not yet ported to slimm_tpu_torch",
-              file=sys.stderr)
-        return 1
     import torch
 
     if not args.no_device and args.device == "cuda" \
@@ -231,7 +249,8 @@ def cmd_profile(args) -> int:
                                device=args.device)
 
     from .database import SlimmDatabase
-    from .engine.pipeline import profile_file, profile_file_streaming
+    from .engine.pipeline import (profile_file, profile_file_streaming,
+                                  profile_files_batched)
     from .engine.reports import write_abundance, write_coverage, write_raw_stat
     from .io import AlignmentFile, collect_bam_files
     from .io.files import get_directory
@@ -247,16 +266,32 @@ def cmd_profile(args) -> int:
         is_directory=args.directory, raw_output=args.raw_output,
         coverage_output=args.coverage_output, verbose=args.verbose)
     # the bin-resolution histograms are only needed for -ro/-co output
-    engine = EngineOptions(fetch_coverage=args.raw_output
+    engine = EngineOptions(trace_dir=args.trace_dir,
+                           fetch_coverage=args.raw_output
                            or args.coverage_output,
                            stream_chunk=args.stream,
                            hash_read_names=args.hash_read_names)
     device = torch.device(args.device)
+    on_card = not args.no_device and device.type == "cuda"
 
     stop_watch = Timer()
     paths = collect_bam_files(options.input_path, options.is_directory,
                               options.verbose)
     db = SlimmDatabase.load(options.database_path)
+
+    # directory mode on one device (slimm_tpu/cli.py:195-215): groups of
+    # files_per_dispatch files, each profiled as one; grouped by size as
+    # slimm_tpu groups them
+    batched = None
+    if (not args.no_device and runner is None and len(paths) > 1
+            and args.trace_dir is None and not engine.stream_chunk):
+        batched = {}
+        group = max(1, engine.files_per_dispatch)
+        by_size = sorted(paths, key=os.path.getsize)
+        for i in range(0, len(by_size), group):
+            batched.update(profile_files_batched(
+                copy.deepcopy(options), db, by_size[i:i + group],
+                device=device, engine=engine))
 
     total_hits = 0
     for n, path in enumerate(paths):
@@ -265,22 +300,25 @@ def cmd_profile(args) -> int:
               "=================================================================",
               file=sys.stderr)
         per_file_options = copy.deepcopy(options)
-        if args.no_device:
-            af = AlignmentFile(path)
-            prof = OracleProfiler(per_file_options, db.ac__taxid,
-                                  db.taxid__name,
-                                  list(zip(af.contig_names,
-                                           af.contig_lengths.tolist())))
-            state = prof.run(af.raw_records())
-        elif engine.stream_chunk:
-            state = profile_file_streaming(
-                per_file_options, db, path,
-                device=None if runner else device, engine=engine,
-                sharded_runner=runner)
-        else:
-            state = profile_file(per_file_options, db, path,
-                                 device=None if runner else device,
-                                 engine=engine, sharded_runner=runner)
+        with _traced(args.trace_dir, path, on_card):
+            if batched is not None:
+                state = batched[path]
+            elif args.no_device:
+                af = AlignmentFile(path)
+                prof = OracleProfiler(per_file_options, db.ac__taxid,
+                                      db.taxid__name,
+                                      list(zip(af.contig_names,
+                                               af.contig_lengths.tolist())))
+                state = prof.run(af.raw_records())
+            elif engine.stream_chunk:
+                state = profile_file_streaming(
+                    per_file_options, db, path,
+                    device=None if runner else device, engine=engine,
+                    sharded_runner=runner)
+            else:
+                state = profile_file(per_file_options, db, path,
+                                     device=None if runner else device,
+                                     engine=engine, sharded_runner=runner)
         total_hits += state.hits_count
         if state.hits_count == 0:
             continue

@@ -61,8 +61,9 @@ class EngineOptions:
     # reports and oracle-parity checks; the hot path only needs the small
     # per-contig stats).
     fetch_coverage: bool = True
-    # Directory mode: files profiled per fused device dispatch (a jit'ed
-    # lax.scan over the file axis; amortizes the per-dispatch round trip).
+    # Directory mode: files profiled as one (engine.pipeline.
+    # profile_files_batched: one pass per group; amortizes the per-file
+    # launches and syncs).
     files_per_dispatch: int = 8
     # Whole-file mode: overlap decode with the host->device record upload
     # for files at least this large (bytes) by streaming fixed-size v2
@@ -88,7 +89,8 @@ class EngineOptions:
     # collide on the hash merge into one read (birthday bound ~3% chance of
     # a single merged pair at 1e9 reads) — opt-in, off by default.
     hash_read_names: bool = False
-    # Emit a jax.profiler trace directory when set.
+    # Write a torch.profiler Chrome trace per input file here when set (the
+    # CLI's --trace-dir).
     trace_dir: str | None = None
     # Per-phase timing log to stderr, same shape as the reference.
     phase_log: bool = True

@@ -35,11 +35,15 @@ host's slow host-to-device link, and it costs a host pass per chunk.
 Every path runs over a `Grid` of devices: one device is the 1 x 1 grid;
 slimm_tpu_torch.parallel builds larger ones (data shards over reads, model
 shards over the bin axis, processes over torch.distributed), and
-`_core_after_a` merges between its stages with integer sums.
+`_core_after_a` merges between its stages with integer sums.  A group of
+files with one header (`profile_files_batched`, the CLI's `-d`) runs as one
+profile over tables that lay the files end to end
+(tables.group_tables); the cutoffs and the packing are per file.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import queue
 import sys
@@ -56,7 +60,7 @@ from ..state import ProfileState, quantile_cut_off
 from ..utils.timer import PhaseTimer
 
 from ..ops.hist import hist1, hist2
-from ..tables import DeviceTables, device_tables
+from ..tables import DeviceTables, device_tables, group_tables
 
 # Widest shift window for device dedup and segment reductions; reads with
 # more records take the doubling scans (and host dedup).
@@ -72,8 +76,9 @@ V2_MAX_BIN = int(np.iinfo(np.uint16).max)
 
 # Which paths ran: files and pieces of the overlap path, why it gave way to
 # the whole-file path, files and chunks (v2, v1) of chunk streaming and why
-# it gave way, pieces that pass B uploaded again from host copies, and
-# files profiled through a sharded runner (slimm_tpu_torch.parallel).
+# it gave way, pieces that pass B uploaded again from host copies, files
+# profiled through a sharded runner (slimm_tpu_torch.parallel), and groups
+# of files profiled as one and groups profiled file by file instead.
 path_counts = dict.fromkeys((
     "overlap_files", "overlap_pieces", "overlap_fallback_no_native",
     "overlap_fallback_open", "overlap_fallback_bins_past_uint16",
@@ -81,7 +86,8 @@ path_counts = dict.fromkeys((
     "stream_files", "stream_chunks_v2", "stream_chunks_v1",
     "stream_fallback_no_native", "stream_fallback_open",
     "stream_fallback_not_grouped", "stream_fallback_overflow",
-    "pass_b_reuploads", "sharded_files"), 0)
+    "pass_b_reuploads", "sharded_files", "batched_groups",
+    "batched_fallback_per_file"), 0)
 
 
 def reset_path_counts():
@@ -169,10 +175,13 @@ def _center_gbin(rid, pos, t: DeviceTables):
     (slimm.hpp:200-201), in int64: torch has no uint32 add or minimum on
     the CPU."""
     rid_c = rid.clamp(0, t.n_contigs - 1)
+    half, bin_width = t.half, t.bin_width
+    if t.n_files > 1:       # a group of files: each contig its file's own
+        half, bin_width = half[rid_c], bin_width[rid_c]
     u32 = 0xFFFFFFFF
-    center = torch.minimum(((pos.to(torch.int64) & u32) + t.half) & u32,
+    center = torch.minimum(((pos.to(torch.int64) & u32) + half) & u32,
                            t.lengths[rid_c])
-    return t.bin_offset[rid_c] + (center // t.bin_width).to(torch.int32)
+    return t.bin_offset[rid_c] + (center // bin_width).to(torch.int32)
 
 
 def _pass_a_local(read_id, rid, pos, t: DeviceTables, *, dedup_window,
@@ -238,19 +247,25 @@ def _cutoffs(rc, nzc, urc, nzu, t: DeviceTables):
 
     The JAX package scans float32 sums in contig order on the device; a CUDA
     reduction keeps no order, so the four per-contig counters come to the
-    host and the oracle's own exact `quantile_cut_off` runs there.
-    Returns (cc, ucc) as float32 and the validity mask on the device."""
+    host and the oracle's own exact `quantile_cut_off` runs there, per file
+    over its own contigs for a group of files.  Returns (cc, ucc) as
+    float32[n_files] and the validity mask on the device."""
     rc_h, nzc_h, urc_h, nzu_h = (x.cpu().numpy() for x in (rc, nzc, urc, nzu))
     covp = nzc_h.astype(np.float32) / t.nbins
     ucovp = nzu_h.astype(np.float32) / t.nbins
-    sel = urc_h > 0
+    K = t.n_files
+    cc = np.zeros(K, np.float32)
+    ucc = np.zeros(K, np.float32)
     if t.q < np.float32(1.0):
-        cc = quantile_cut_off(covp[sel], t.q)
-        ucc = quantile_cut_off(ucovp[sel], t.q)
-    else:
-        cc = ucc = np.float32(0.0)
-    valid = (rc_h > 0) & (covp >= cc) & (ucovp >= ucc)
-    return np.float32(cc), np.float32(ucc), torch.from_numpy(valid).to(rc.device)
+        sel = (urc_h > 0).reshape(K, -1)
+        for k, (c, u) in enumerate(zip(covp.reshape(K, -1),
+                                       ucovp.reshape(K, -1))):
+            cc[k] = quantile_cut_off(c[sel[k]], t.q)
+            ucc[k] = quantile_cut_off(u[sel[k]], t.q)
+    C = len(rc_h) // K
+    valid = ((rc_h > 0) & (covp >= np.repeat(cc, C))
+             & (ucovp >= np.repeat(ucc, C)))
+    return cc, ucc, torch.from_numpy(valid).to(rc.device)
 
 
 # ---------------------------------------------------------------------------
@@ -360,7 +375,11 @@ def _pass_b_local(read_id, rid, t_gbin, nondup, valid_mask, t: DeviceTables,
 def _pair_domain(t: DeviceTables) -> int:
     """Slots of the (contig x code) pair presence, padded to 1024 as in the
     JAX layout: the packed vector carries pdom / 32 presence words."""
-    return -(-(t.n_contigs * t.n_codes) // 1024) * 1024
+    return _pad1024(t.n_contigs * t.n_codes)
+
+
+def _pad1024(n: int) -> int:
+    return -(-n // 1024) * 1024
 
 
 def _pack_bits_words(x):
@@ -564,7 +583,7 @@ def _core_after_a(grid: Grid, cov, uniq_cov, uniq_matches, pass_b_pieces, *,
     uniq_matches2 = grid.merge([a["um2"] for a in accs])
     pair = grid.merge_any([a["pair"] for a in accs])
     out = dict(packed=_pack(rc, urc, nzc, nzu, u2, valid_mask, uniq_matches,
-                            uniq_matches2, cc, ucc, taxon, pair))
+                            uniq_matches2, cc, ucc, taxon, pair, t0))
     if emit_coverage:
         out.update(cov=_concat(cov_m, t0), uniq_cov=_concat(ucov_m, t0),
                    uniq_cov2=_concat(u2_m, t0))
@@ -627,13 +646,30 @@ def _pass_b_chunk(acc, read_id, rid, t_gbin, nondup, valid_mask,
 
 
 def _pack(rc, urc, nzc, nzu, u2, valid_mask, uniq_matches, uniq_matches2,
-          cc, ucc, taxon_counts, pair_levels):
-    """The packed int32 vector (pipeline.py:751-766 and 1487-1500)."""
-    cuts = torch.from_numpy(np.array([cc, ucc], np.float32).view(np.int32))
-    scalars = torch.cat([torch.stack([uniq_matches, uniq_matches2]),
-                         cuts.to(rc.device), rc.new_zeros(_N_SCALARS - 4)])
-    return torch.cat([rc, urc, nzc, nzu, u2, valid_mask.to(torch.int32),
-                      scalars, taxon_counts, _pack_bits_words(pair_levels)])
+          cc, ucc, taxon_counts, pair_levels, t: DeviceTables):
+    """The packed int32 vector (pipeline.py:751-766 and 1487-1500); for a
+    group of files (t.n_files = K) the K files' vectors one after another,
+    each in the one-file layout.  cc, ucc: float32[K]."""
+    K = t.n_files
+    if K > 1:
+        # a read with exactly one (valid) target is one record counted in
+        # uniq_cov (u2), and a record's bin lies in its contig's bins, so a
+        # file's unique reads are its contigs' sums; the two group-wide
+        # counts are not per file
+        uniq_matches = urc.view(K, -1).sum(1, dtype=torch.int32)
+        uniq_matches2 = u2.view(K, -1).sum(1, dtype=torch.int32)
+        cells = t.n_contigs // K * t.n_codes
+        rows = pair_levels.new_zeros(K, _pad1024(cells))
+        rows[:, :cells] = pair_levels[:K * cells].view(K, cells)
+        pair_levels = rows.view(-1)
+    cuts = torch.from_numpy(np.stack([cc, ucc], 1).view(np.int32))
+    scalars = torch.cat([torch.stack([uniq_matches, uniq_matches2], -1)
+                         .view(K, 2), cuts.to(rc.device),
+                         rc.new_zeros(K, _N_SCALARS - 4)], 1)
+    parts = [rc, urc, nzc, nzu, u2, valid_mask.to(torch.int32)]
+    return torch.cat([x.view(K, -1) for x in parts] + [
+        scalars, taxon_counts.view(K, -1),
+        _pack_bits_words(pair_levels).view(K, -1)], 1).view(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -731,16 +767,16 @@ def profile_arrays(options: ProfileOptions, db: SlimmDatabase,
                    engine: EngineOptions | None = None,
                    sharded_runner=None, deduped: bool = True,
                    max_targets: int = 0) -> ProfileState:
-    """Profile decoded record arrays on `device`, or over the devices of
-    `sharded_runner` (slimm_tpu_torch.parallel), whose merges are exact.
+    """Profile decoded record arrays on `device` (by default the card), or
+    over the devices of `sharded_runner` (slimm_tpu_torch.parallel), whose
+    merges are exact.
 
     read_id/rid/pos: with deduped=True (decoder contract) one entry per
     distinct (read, contig) with the first hit's position, grouped by read;
     with deduped=False raw multi-hit records in any order.  n_reads and
     hits_count are the file's totals (across processes: the global ones, on
     every process).  Fills the same ProfileState as the scalar oracle."""
-    if (device is None) == (sharded_runner is None):
-        raise ValueError("give exactly one of device and sharded_runner")
+    device = _device(device, sharded_runner)
     engine = engine or EngineOptions()
     timer = PhaseTimer(enabled=engine.phase_log)
     st = ProfileState(options=options, ac__taxid=db.ac__taxid,
@@ -773,6 +809,22 @@ def profile_arrays(options: ProfileOptions, db: SlimmDatabase,
     return st
 
 
+def _device(device, sharded_runner) -> torch.device | None:
+    """The device of an entry point: the card unless `device` names
+    another, or None when the profile runs over `sharded_runner`'s grid.
+    A missing GPU raises; nothing runs on the CPU unless asked."""
+    if sharded_runner is not None:
+        if device is not None:
+            raise ValueError("give exactly one of device and sharded_runner, "
+                             "or neither (the card)")
+        return None
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError('device cuda: no CUDA device is available (pass '
+                           'device="cpu" to profile on the CPU)')
+    return device
+
+
 def _grid(device, runner, make_tables) -> Grid:
     """The Grid of one profile: `device`'s alone, or `runner`'s grid
     (counted in path_counts["sharded_files"]); make_tables(device) builds
@@ -783,11 +835,16 @@ def _grid(device, runner, make_tables) -> Grid:
     return runner.grid(make_tables)
 
 
+def _host(x) -> np.ndarray:
+    return x if isinstance(x, np.ndarray) else x.cpu().numpy()
+
+
 def _finalize_state(st, out, dense, engine, options, timer):
     """Fill a ProfileState from the fused profile's outputs (pipeline.py
-    1167-1250, without the streamed pair-bits branch)."""
+    1167-1250, without the streamed pair-bits branch): tensors, or numpy
+    arrays already fetched (a file of the batched path)."""
     n_contigs = len(st.accessions)
-    packed_np = out["packed"].cpu().numpy()
+    packed_np = _host(out["packed"])
     stats = unpack_stats(packed_np, n_contigs, dense.n_dense)
     st.reads_count = stats["reads_count"].astype(np.int64)
     st.uniq_reads_count = stats["uniq_reads_count"].astype(np.int64)
@@ -796,8 +853,8 @@ def _finalize_state(st, out, dense, engine, options, timer):
     st.uniq_matches_count = stats["uniq_matches"]
     st.uniq_hits_count = st.uniq_matches_count  # identical by construction
     if engine.fetch_coverage:
-        st.cov = out["cov"].cpu().numpy().astype(np.uint32)
-        st.uniq_cov = out["uniq_cov"].cpu().numpy().astype(np.uint32)
+        st.cov = _host(out["cov"]).astype(np.uint32)
+        st.uniq_cov = _host(out["uniq_cov"]).astype(np.uint32)
     else:
         # drop the zero-filled placeholders so bin-level access without a
         # fetch fails loudly instead of reading silent zeros
@@ -820,7 +877,7 @@ def _finalize_state(st, out, dense, engine, options, timer):
     timer.start("Assigning reads to Least Common Ancestor (LCA) ... ")
     st.uniq_reads_count2 = stats["uniq_reads_count2"].astype(np.int64)
     if engine.fetch_coverage:
-        st.uniq_cov2 = out["uniq_cov2"].cpu().numpy().astype(np.uint32)
+        st.uniq_cov2 = _host(out["uniq_cov2"]).astype(np.uint32)
     st.uniq_matches_count2 = stats["uniq_matches2"]
 
     # dense LCA counts + children pairs -> taxid dicts
@@ -876,14 +933,15 @@ def open_alignment_file(path: str, engine: EngineOptions | None = None):
 def profile_file(options: ProfileOptions, db: SlimmDatabase, path: str, *,
                  device=None, engine: EngineOptions | None = None,
                  sharded_runner=None) -> ProfileState:
-    """Decode one SAM/BAM file and profile it on `device`, or over the
-    devices of `sharded_runner`.
+    """Decode one SAM/BAM file and profile it on `device` (by default the
+    card), or over the devices of `sharded_runner`.
 
     On one device, a file of at least `engine.overlap_min_bytes` takes the
     overlap path (pipeline.py:1277-1288): pass A runs on each piece while
     the native decoder goes on with the rest of the file.  Otherwise, or
     when that path gives way, and always with a sharded_runner, the file is
     decoded whole first."""
+    device = _device(device, sharded_runner)
     engine = engine or EngineOptions()
     if (sharded_runner is None and engine.use_native
             and engine.overlap_min_bytes > 0):
@@ -1262,7 +1320,8 @@ def profile_file_streaming(options: ProfileOptions, db: SlimmDatabase,
     `path_counts`.  With a `sharded_runner` the pieces are routed over its
     data shards and the bins split over its model shards; across processes
     a fall back raises instead (each process would profile its own input
-    alone)."""
+    alone).  Without either, `device` is the card."""
+    device = _device(device, sharded_runner)
     engine = engine or EngineOptions()
     chunk_targets = chunk_targets or engine.stream_chunk or (4 << 20)
     timer = PhaseTimer(enabled=engine.phase_log)
@@ -1334,3 +1393,122 @@ def profile_file_streaming(options: ProfileOptions, db: SlimmDatabase,
     t2 = PhaseTimer(enabled=engine.phase_log)
     t2.start("Filtering + LCA (fused above) ..................... ")
     return _finalize_state(st, out, dense, engine, options, t2)
+
+
+# ---------------------------------------------------------------------------
+# batched directory profiles (pipeline.py:1830-2000)
+# ---------------------------------------------------------------------------
+#
+# The JAX package stacks a group of files into one lax.scan to pay the TPU
+# link's round trip once per group.  Here the group's files are laid end to
+# end as one profile (tables.group_tables): file k's contigs, bins and
+# dense taxa are offset past the earlier files', and its reads keep to
+# themselves, so one pass A, one cutoff sync and one pass B serve the group,
+# each histogram one kernel launch, and every packed vector comes back in
+# one fetch.  Every count stays per contig, per bin or per taxon of one
+# file, so the result is each file's own.
+
+
+def profile_files_batched(options: ProfileOptions, db: SlimmDatabase,
+                          paths: list, *, device=None,
+                          engine: EngineOptions | None = None) -> list:
+    """Profile a group of SAM/BAM files as one, on `device` (by default the
+    card): [(path, ProfileState)] in path order.  Each file is decoded whole
+    and gets its own copy of `options` (hence its own bin_width); a file
+    with no hits keeps its state and is warned about.  Files whose headers
+    differ are profiled one by one through profile_file
+    (pipeline.py:1876-2000)."""
+    device = _device(device, None)
+    engine = engine or EngineOptions()
+    decoded = []
+    for path in paths:
+        af = open_alignment_file(path, engine)
+        decoded.append((path, af, af.load()))
+    names0 = list(decoded[0][1].contig_names)
+    lengths0 = np.asarray(decoded[0][1].contig_lengths)
+    same_ref = all(
+        list(af.contig_names) == names0
+        and np.array_equal(np.asarray(af.contig_lengths), lengths0)
+        for _, af, _ in decoded[1:])
+    if not same_ref:
+        # profile_arrays sets options' defaults (bin_width, min_reads), so
+        # each file gets its own copy
+        path_counts["batched_fallback_per_file"] += 1
+        return [(path, profile_file(copy.deepcopy(options), db, path,
+                                    device=device, engine=engine))
+                for path, _, _ in decoded]
+
+    timer = PhaseTimer(enabled=engine.phase_log)
+    timer.start("Intializing coverages for all reference genome ... ")
+    dense = tensorize(db, names0)
+    preps, empties = [], []
+    for path, _, batch in decoded:
+        opts_k = copy.deepcopy(options)
+        st = ProfileState(options=opts_k, ac__taxid=db.ac__taxid,
+                          taxid__name=db.taxid__name)
+        st.avg_read_length = batch.avg_read_length
+        if opts_k.bin_width == 0:
+            opts_k.bin_width = batch.avg_read_length
+        st.init_contigs(names0, lengths0, opts_k.bin_width)
+        st.hits_count = batch.hits_count
+        st.matches_count = batch.n_reads
+        if batch.hits_count == 0:
+            empties.append((path, st))
+        else:
+            preps.append((path, st, opts_k, batch))
+    timer.lap()
+
+    outs = []
+    if preps:
+        timer.start("Analysing alignments, reads and references ....... ")
+        outs = _profile_group(preps, dense, device, engine)
+        path_counts["batched_groups"] += 1
+        timer.lap()
+    results = {}
+    for path, st in empties:
+        print("[WARNING] No mapped reads found in BAM file!", file=sys.stderr)
+        results[path] = st
+    for (path, st, opts_k, _), out in zip(preps, outs):
+        _finalize_state(st, out, dense, engine, opts_k,
+                        PhaseTimer(enabled=False))
+        results[path] = st
+    return [(path, results[path]) for path, _, _ in decoded]
+
+
+def _profile_group(preps, dense, device, engine) -> list:
+    """One profile over the files of `preps` [(path, state, options, decoded
+    batch)] laid end to end; each file's outputs as numpy arrays, fetched
+    once for the group."""
+    states = [st for _, st, _, _ in preps]
+    batches = [b for _, _, _, b in preps]
+    C = len(dense.lineage)
+    # the decoder's batches are deduped and grouped by read; one segment
+    # plan, the longest read's, serves the group (pipeline.py:1937-1945)
+    k_steps, window = plan_from_max_run(max(
+        b.max_targets or seg_plan(b.read_id)[0] for b in batches))
+    # each file's read ids after the earlier files'
+    reads = np.array([int(b.read_id.max()) + 1 for b in batches])
+    if reads.sum() > np.iinfo(np.int32).max:
+        raise OverflowError(f"{reads.sum()} reads in a group of files: the "
+                            "read ids pass int32 (lower files_per_dispatch)")
+    read_id = np.concatenate([b.read_id + r for b, r in
+                              zip(batches, np.cumsum(reads) - reads)])
+    rid = np.concatenate([np.asarray(b.rid) + k * C
+                          for k, b in enumerate(batches)])
+    pos = np.concatenate([b.pos for b in batches])
+    grid = Grid.single(group_tables(
+        states, [opts for _, _, opts, _ in preps], dense, device))
+    out = fused_profile_shards(grid, grid.shards(read_id, rid, pos),
+                               dedup_window=0, k_steps=k_steps,
+                               window=window,
+                               emit_coverage=engine.fetch_coverage)
+    packed = out["packed"].cpu().numpy().reshape(len(preps), -1)
+    hists = {key: out[key].cpu().numpy() for key in
+             ("cov", "uniq_cov", "uniq_cov2") if engine.fetch_coverage}
+    outs, lo = [], 0
+    for k, st in enumerate(states):
+        hi = lo + int(st.nbins.sum())
+        outs.append(dict(packed=packed[k],
+                         **{key: h[lo:hi] for key, h in hists.items()}))
+        lo = hi
+    return outs

@@ -27,13 +27,16 @@ class DeviceTables:
     lineage: torch.Tensor      # int32[C, 8]: dense taxon id per level
     sk_code: torch.Tensor      # int32[C]: superkingdom code (pair channel)
     nbins: np.ndarray          # float32[C] on the host: bins per contig
-    half: int                  # avg read length // 2 (center binning)
-    bin_width: int
+    # avg read length // 2 (center binning) and the bin width: ints, or for
+    # a group of files int64[C] tensors, each contig its own file's
+    half: int | torch.Tensor
+    bin_width: int | torch.Tensor
     q: np.float32              # coverage quantile (-cc)
     n_bins: int                # total bins over all contigs
     n_dense: int               # dense taxon ids
     n_codes: int               # pair codes per contig: 8 levels + S
     first_level: torch.Tensor  # int32[256]: _FIRST_LEVEL on the device
+    n_files: int = 1           # files profiled as one (group_tables)
 
     @property
     def n_contigs(self) -> int:
@@ -45,13 +48,16 @@ class DeviceTables:
 
     @classmethod
     def from_numpy(cls, lengths, bin_offset, bin_ends, lineage, sk_code, *,
-                   n_dense: int, n_codes: int, half: int, bin_width: int, q,
-                   device) -> "DeviceTables":
+                   n_dense: int, n_codes: int, half, bin_width, q,
+                   device, n_files: int = 1) -> "DeviceTables":
         bin_offset = np.asarray(bin_offset, np.int32)
         bin_ends = np.asarray(bin_ends, np.int32)
 
         def dev(a, dtype):
             return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+        def per_contig(x):
+            return dev(x, np.int64) if np.ndim(x) else int(x)
 
         return cls(lengths=dev(np.asarray(lengths).astype(np.uint32), np.int64),
                    bin_offset=dev(bin_offset, np.int32),
@@ -59,10 +65,11 @@ class DeviceTables:
                    lineage=dev(lineage, np.int32),
                    sk_code=dev(sk_code, np.int32),
                    nbins=(bin_ends - bin_offset).astype(np.float32),
-                   half=int(half), bin_width=int(bin_width), q=np.float32(q),
+                   half=per_contig(half), bin_width=per_contig(bin_width),
+                   q=np.float32(q),
                    n_bins=int(bin_ends[-1]) if len(bin_ends) else 0,
                    n_dense=int(n_dense), n_codes=int(n_codes),
-                   first_level=dev(_FIRST_LEVEL, np.int32))
+                   first_level=dev(_FIRST_LEVEL, np.int32), n_files=n_files)
 
 
 def device_tables(st, dense, options, device) -> DeviceTables:
@@ -74,3 +81,27 @@ def device_tables(st, dense, options, device) -> DeviceTables:
         dense.sk_code, n_dense=dense.n_dense, n_codes=dense.n_pair_codes,
         half=st.avg_read_length // 2, bin_width=options.bin_width,
         q=options.cov_cut_off, device=device)
+
+
+def group_tables(states, options, dense, device) -> DeviceTables:
+    """Tables of K files with one header, profiled as one (the batched
+    directory path): file k's contigs are k*C .. k*C + C - 1, its bins
+    follow the earlier files' bins, its dense taxon ids are offset by
+    k*n_dense, and each contig carries its own file's half read length and
+    bin width.  states[k] / options[k]: file k's ProfileState after
+    init_contigs and its ProfileOptions; one file gives device_tables."""
+    if len(states) == 1:
+        return device_tables(states[0], dense, options[0], device)
+    K, C = len(states), len(states[0].lengths)
+    base = np.cumsum([0] + [int(st.nbins.sum()) for st in states[:-1]])
+    return DeviceTables.from_numpy(
+        np.tile(states[0].lengths, K),
+        np.concatenate([st.bin_offset + b for st, b in zip(states, base)]),
+        np.concatenate([st.bin_offset + st.nbins + b
+                        for st, b in zip(states, base)]),
+        np.concatenate([dense.lineage + k * dense.n_dense for k in range(K)]),
+        np.tile(dense.sk_code, K), n_dense=K * dense.n_dense,
+        n_codes=dense.n_pair_codes,
+        half=np.repeat([st.avg_read_length // 2 for st in states], C),
+        bin_width=np.repeat([o.bin_width for o in options], C),
+        q=options[0].cov_cut_off, device=device, n_files=K)

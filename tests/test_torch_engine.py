@@ -163,14 +163,18 @@ def test_raw_records_device_and_host_dedup(records, toy_dir):
     assert_states_equal(_oracle(db, sam, ProfileOptions()), st_t)
 
 
+FUZZ_SEEDS = [10_000, 10_003, 10_006, 10_011, 10_017, 10_024]
+
+
 @pytest.mark.parametrize("path", ["whole_file", "overlap", "stream_v2",
-                                  "stream_v1"])
-@pytest.mark.parametrize("seed", [10_000, 10_003, 10_006, 10_011, 10_017,
-                                  10_024])
+                                  "stream_v1", "sharded_2x2"])
+@pytest.mark.parametrize("seed", FUZZ_SEEDS)
 def test_fuzz_cases_match_oracle(seed, path, tmp_path, toy_dir, monkeypatch):
     # each case through the whole-file path, the overlap path (pieces of
-    # 2,048 targets) and chunk streaming (v2 pieces; v1 chunks of 64)
+    # 2,048 targets), chunk streaming (v2 pieces; v1 chunks of 64) and the
+    # whole-file path over a (2, 2) grid of the CPU
     from slimm_tpu_torch.engine import pipeline as tp
+    from slimm_tpu_torch.parallel import ShardedRunner
 
     records, options = gen_case(np.random.default_rng(seed))
     db = build_toy_db(toy_dir)
@@ -184,6 +188,12 @@ def test_fuzz_cases_match_oracle(seed, path, tmp_path, toy_dir, monkeypatch):
             to_port(options), to_port(db), sam, device=CPU,
             engine=TEngineOptions(phase_log=False), chunk_targets=64)
         assert tp.path_counts["stream_files"] == 1
+    elif path == "sharded_2x2":
+        st_t = profile_file(
+            to_port(options), to_port(db), sam,
+            engine=TEngineOptions(phase_log=False),
+            sharded_runner=ShardedRunner(devices=[["cpu", "cpu"]] * 2))
+        assert tp.path_counts["sharded_files"] == 1
     else:
         eng = TEngineOptions(phase_log=False,
                              overlap_min_bytes=int(path == "overlap"),
@@ -195,6 +205,27 @@ def test_fuzz_cases_match_oracle(seed, path, tmp_path, toy_dir, monkeypatch):
         assert st_t.hits_count == 0
         return
     assert_states_equal(st_o, st_t)
+
+
+def test_fuzz_cases_batched_match_oracle(tmp_path, toy_dir):
+    # the six seeds' files as one group: one header, so one profile
+    from slimm_tpu_torch.engine import pipeline as tp
+
+    db = build_toy_db(toy_dir)
+    paths = [write_sam(str(tmp_path), gen_case(np.random.default_rng(seed))[0],
+                       name=f"fuzz_{seed}.sam") for seed in FUZZ_SEEDS]
+    tp.reset_path_counts()
+    got = tp.profile_files_batched(ProfileOptions(), to_port(db), paths,
+                                   device=CPU,
+                                   engine=TEngineOptions(phase_log=False))
+    assert tp.path_counts["batched_groups"] == 1
+    assert [p for p, _ in got] == paths
+    for path, st_t in got:
+        st_o = _oracle(db, path, ProfileOptions())
+        if st_o.hits_count == 0:
+            assert st_t.hits_count == 0
+            continue
+        assert_states_equal(st_o, st_t)
 
 
 def test_deep_bin_counts_exact():
@@ -374,20 +405,60 @@ def test_cli_cuda_without_gpu_exits_1(built_db, toy_dir, tmp_path, capsys,
     assert not out.exists()
 
 
-@pytest.mark.parametrize("flags", [["--shards", "2", "--trace-dir", "trace"],
-                                   ["--model-shards", "2", "--trace-dir",
-                                    "trace"],
-                                   ["--trace-dir", "trace"]])
-def test_cli_refuses_options_not_yet_ported(flags, built_db, toy_dir,
-                                            tmp_path, capsys):
-    # --shards/--model-shards are ported (tests/test_torch_parallel.py);
-    # --trace-dir is refused alone and beside them
-    out = tmp_path / "o"
-    assert tcli.main(["profile", "--device", "cpu", *flags, "-o",
-                      str(out) + "/", built_db, toy_dir.sam_path]) == 1
-    err = capsys.readouterr().err
-    assert "[ERROR] --trace-dir is not yet ported" in err
-    assert not out.exists()
+TRACE_CASES = {"alone": [], "shards_2": ["--shards", "2"],
+               "model_shards_2": ["--model-shards", "2"],
+               "stream": ["--stream", "600"], "directory": ["-d"]}
+
+
+@pytest.mark.parametrize("case", list(TRACE_CASES))
+def test_cli_trace_dir(case, built_db, toy_dir, tmp_path):
+    # each input's profile runs inside torch.profiler and leaves a Chrome
+    # trace named after it; the profile bytes are those of the run without
+    # --trace-dir.  Under -d the files are profiled one by one.
+    import json
+    import shutil
+
+    from slimm_tpu_torch.engine import pipeline as tp
+
+    src = toy_dir.sam_path
+    if case == "directory":
+        src = str(tmp_path / "in")
+        os.makedirs(src)
+        shutil.copy(toy_dir.sam_path, os.path.join(src, "s1.sam"))
+        write_sam(src, _duplicate_heavy(), name="s2.sam")
+    inputs = sorted(os.listdir(src)) if case == "directory" else [
+        os.path.basename(src)]
+    extra = TRACE_CASES[case]
+    outs = {}
+    for tag, trace in (("plain", []),
+                       ("traced", ["--trace-dir", str(tmp_path / "tr")])):
+        outs[tag] = str(tmp_path / tag) + "/"
+        tp.reset_path_counts()
+        assert tcli.main(["profile", "--device", "cpu", *extra, *trace,
+                          "-o", outs[tag], built_db, src]) == 0
+        assert tp.path_counts["batched_groups"] == int(
+            case == "directory" and tag == "plain")
+    names = sorted(os.listdir(outs["plain"]))
+    assert len(names) == len(inputs) and names == sorted(
+        os.listdir(outs["traced"]))
+    for name in names:
+        assert filecmp.cmp(outs["plain"] + name, outs["traced"] + name,
+                           shallow=False), name
+    traces = sorted(os.listdir(tmp_path / "tr"))
+    assert traces == [f"{name}.pt.trace.json" for name in inputs]
+    for name in traces:
+        events = json.load(open(tmp_path / "tr" / name))["traceEvents"]
+        assert any(e.get("name", "").startswith("aten::") for e in events)
+
+
+def test_cli_trace_dir_not_writable_is_an_error(built_db, toy_dir, tmp_path,
+                                                capsys):
+    blocker = tmp_path / "file"
+    blocker.write_text("")
+    assert tcli.main(["profile", "--device", "cpu", "--trace-dir",
+                      str(blocker / "tr"), "-o", str(tmp_path / "o") + "/",
+                      built_db, toy_dir.sam_path]) == 1
+    assert "[ERROR]" in capsys.readouterr().err
 
 
 def test_cli_collect(built_db, toy_dir, tmp_path):
@@ -417,6 +488,9 @@ def test_port_sources_import_no_jax_or_engine():
     sources = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
                if f.endswith(".py")]
     assert len(sources) >= 20
+    for module in ("misc_compat.py", "tools/preprocess.py", "cli.py",
+                   "engine/pipeline.py", "tables.py"):
+        assert os.path.join(pkg, module) in sources, module
     for path in sources + [os.path.join(REPO, "chip_smoke.py")]:
         text = open(path).read()
         assert not forbidden.search(text), path
@@ -429,12 +503,13 @@ def test_port_sources_import_no_jax_or_engine():
 def test_toy_profile_runs_without_jax(built_db, toy_dir, tmp_path):
     # the card's machine has no JAX: with jax and slimm_tpu made
     # unimportable, the port's CLI builds the DB, profiles whole-file,
-    # on the overlap path (overlap_min_bytes lowered) and with --stream,
-    # and collects; every file's bytes equal slimm_tpu's CLI
+    # on the overlap path (overlap_min_bytes lowered), with --stream, a
+    # directory with -d (batched) and a file with --trace-dir, and
+    # collects; every file's bytes equal slimm_tpu's CLI
     ds = toy_dir
     out = str(tmp_path / "nojax") + "/"
     code = f"""
-import functools, sys
+import functools, os, shutil, sys
 sys.modules['jax'] = None
 sys.modules['slimm_tpu'] = None
 from slimm_tpu_torch import cli
@@ -453,6 +528,17 @@ for tag, (extra, counter, want) in runs.items():
     assert cli.main(['profile', '--device', 'cpu', *extra, '-o', out + tag,
                      db, {ds.sam_path!r}]) == 0
     assert pipeline.path_counts[counter] == want, (tag, pipeline.path_counts)
+os.makedirs(out + 'dir')
+for name in ('a.sam', 'b.sam'):
+    shutil.copy({ds.sam_path!r}, out + 'dir/' + name)
+pipeline.reset_path_counts()
+assert cli.main(['profile', '--device', 'cpu', '-d', '-o', out + 'd/', db,
+                 out + 'dir']) == 0
+assert pipeline.path_counts['batched_groups'] == 1, pipeline.path_counts
+assert cli.main(['profile', '--device', 'cpu', '--trace-dir', out + 'tr',
+                 '-o', out + 'traced', db, {ds.sam_path!r}]) == 0
+assert os.listdir(out + 'tr') == [
+    os.path.basename({ds.sam_path!r}) + '.pt.trace.json']
 assert cli.main(['collect', '-o', out + 'merged.tsv', out + 'whole_profile.tsv',
                  out + 'stream_profile.tsv']) == 0
 assert not any(m in ('jax', 'slimm_tpu') or m.startswith(('jax.', 'slimm_tpu.'))
@@ -475,7 +561,8 @@ assert not any(m in ('jax', 'slimm_tpu') or m.startswith(('jax.', 'slimm_tpu.'))
                      ref + "whole_profile.tsv",
                      ref + "stream_profile.tsv"]) == 0
     for got, want in (("whole", "whole"), ("stream", "stream"),
-                      ("overlap", "whole")):
+                      ("overlap", "whole"), ("d/a", "whole"),
+                      ("d/b", "whole"), ("traced", "whole")):
         assert filecmp.cmp(out + got + "_profile.tsv",
                            ref + want + "_profile.tsv", shallow=False), got
     assert filecmp.cmp(out + "merged.tsv", ref + "merged.tsv", shallow=False)
