@@ -25,7 +25,10 @@ Phases, each timed; any failure raises and the script exits non-zero:
            sharded core (slimm_tpu_torch.parallel) on the card at (data,
            model) = (2, 1), (2, 2), (1, 4) and (1, 4), (4, 2): packed
            vectors equal to the unsharded cuda run's, pass A of every shard
-           without a host sync, the -ro/-co histograms equal at (2, 2)
+           without a host sync, the -ro/-co histograms equal at (2, 2);
+           the single-core C++ baseline (io.native.baseline_profile) on the
+           same arrays, median of 5, its counters equal to the port's
+           unpacked stats, its seconds and the card's ratio to them
   stream   the streamed paths on a 4M-record bench SAM (about 1.3 GB):
            the overlap path (profile_file's default at this size), the
            whole-file path, chunk streaming (v2 pieces, with and without the
@@ -43,6 +46,16 @@ Phases, each timed; any failure raises and the script exits non-zero:
            with its one sync per piece, and a 2^19-record piece is routed
            both on the host (numpy) and on the card: parts equal, both
            timed
+  bam      the stream phase's workload written as a BAM (BGZF, zlib level
+           1): profile_file on it (the path its size gives, read from the
+           path counters) and the CLI, both kernels launched, TSVs equal
+           to the SAM's; the file's seconds, a decode-only floor and the
+           single-thread C++ end to end (single-thread decode +
+           baseline_profile, counters equal to the port's), each a median
+           of 3 in turns after a warm run; the histogram inputs of
+           profile_file's run (with -ro/-co's histograms) and of the CLI's
+           captured and each kernel held against its plain version on
+           them, as in the kernel phase
   cli      `python -m slimm_tpu_torch profile` on a toy SAM against the
            oracle (--no-device); then the profile CLI on a 1M-record bench
            SAM (which takes the overlap path) with the kernel launch and
@@ -58,7 +71,10 @@ Phases, each timed; any failure raises and the script exits non-zero:
            each run read; seconds of both ways, median of 3 after a warm
            run, in turns, beside a decode-only floor.  The histogram
            inputs of one group of 8 are captured and each kernel held
-           against its plain version on them
+           against its plain version on them.  One more run of each way
+           splits its host time per file into decode, tables, pass A to the
+           cutoff sync, pass B and the fetch, _finalize_state and TSV
+           writes, read at the pipeline's fixed points (host_marks)
   trace    `profile --trace-dir` on the 1M-record SAM: the TSV equal to the
            untraced run's, and the Chrome trace names both kernels'
            __global__ functions (torch.profiler sees the kernels launched
@@ -68,7 +84,9 @@ Phases, each timed; any failure raises and the script exits non-zero:
            read into one SAM per process: a one-process NCCL world on the
            whole SAM and a two-process gloo world on cuda:0 tensors (NCCL
            refuses two ranks on one GPU), each whole-file and streamed; the
-           TSV of every process equal to a one-process run's
+           TSV of every process equal to a one-process run's, and the
+           payload bytes of every collective each process issued
+           (MultiHostRunner.collective_bytes), equal across the processes
 
 With several shards on one card, the sharded numbers measure the cost of
 routing and merging, not scale-out.  Nothing of JAX or of slimm_tpu is
@@ -112,6 +130,8 @@ CHILD_TIMEOUT = 300
 DIR_SEEDS = range(100, 116)
 DIR_RECORDS = 100_000
 DIR_REPS = 3
+BAM_REPS = 3
+BASELINE_REPS = 5               # the C++ baseline of the cores (bench.py)
 
 # kernel launches of the path runs (not of the kernel comparisons), summed
 # over the phases: each run resets the counts before it and adds them after
@@ -404,7 +424,43 @@ def core_phase(torch, np, pipeline, cuda_time, hist, device):
                 f"implausible stats at {n} x {n_contigs}")
         log(f"  packed vectors equal ({device} == cpu), {len(packed['cpu'])} "
             f"int32, uniq_matches {stats['uniq_matches']}")
-        phase(f"core {n} x {n_contigs}", t0)
+        base_secs = core_baseline(np, w, stats, n, n_contigs)
+        n_rec = len(read_id)
+        phase(f"core {n} x {n_contigs} (card {secs:.6f} s, "
+              f"{n_rec / secs:.0f} records/s; single-core C++ "
+              f"{base_secs:.6f} s, {n_rec / base_secs:.0f} records/s; card "
+              f"against C++ {base_secs / secs:.1f}x)", t0)
+
+
+def core_baseline(np, w, stats, n, n_contigs):
+    """native.baseline_profile on the core's arrays, median of
+    BASELINE_REPS (bench.py bench_baseline); its counters held to the
+    port's unpacked stats wherever both have the counter.  Returns its
+    median seconds."""
+    from slimm_tpu_torch.io import native
+
+    times = []
+    for _ in range(BASELINE_REPS):
+        secs, counters = native.baseline_profile(
+            w["read_id"], w["rid"], w["pos"], w["n_reads"], w["lengths"],
+            w["lineage"], w["avg_read_len"], w["avg_read_len"])
+        times.append(secs)
+    port = dict(uniq_matches=stats["uniq_matches"],
+                uniq_matches2=stats["uniq_matches2"],
+                n_valid_refs=int(stats["valid"].sum()),
+                lca_total=int(stats["taxon_counts"].sum()),
+                cov_mass=int(stats["reads_count"].sum()),
+                uniq_cov2_mass=int(stats["uniq_reads_count2"].sum()))
+    bad = {k: (counters[k], v) for k, v in port.items() if counters[k] != v}
+    require(not bad, f"core {n} x {n_contigs}: the C++ baseline's counters "
+            f"differ from the port's stats (C++, port): {bad}")
+    secs = float(np.median(times))
+    log(f"  single-core C++ baseline (native.baseline_profile) on the same "
+        f"arrays: median of {BASELINE_REPS} {secs:.6f} s "
+        f"({' / '.join(f'{x:.4f}' for x in times)}), "
+        f"{len(w['read_id']) / secs:.0f} records/s; counters equal to the "
+        f"port's stats {sorted(port)}; hits {counters['hits']}")
+    return secs
 
 
 def sharded_core(torch, np, pipeline, cuda_time, hist, tables, records, plan,
@@ -657,7 +713,157 @@ def stream_phase(torch, np, pipeline, hist, tmp, device, smi):
         f"{secs['sharded_stream_2x2_route']:.3f})")
     os.remove(sam)
     phase("stream", t0)
-    return secs
+    return w, db, tsv["overlap"][1]
+
+
+def baseline_mismatch(counters, st, hits):
+    """The counters of native.baseline_profile that differ from the port's
+    ProfileState `st` (with its bin histograms), as {name: (C++, port)};
+    `hits` is the number of records the baseline was given."""
+    port = dict(hits=hits, matches=st.matches_count,
+                uniq_matches=st.uniq_matches_count,
+                uniq_matches2=st.uniq_matches_count2,
+                n_valid_refs=len(st.valid_ref_ids),
+                cov_mass=int(st.cov.sum()),
+                uniq_cov2_mass=int(st.uniq_cov2.sum()))
+    return {k: (counters[k], v) for k, v in port.items() if counters[k] != v}
+
+
+def bam_phase(torch, np, pipeline, hist, batch_time, tmp, device, smi,
+              stream_files):
+    """The stream phase's 4M-record workload written as a BAM, decoded and
+    profiled on `device`: profile_file's path (whichever its size gives),
+    its TSV equal to the SAM's, the CLI on it launching both kernels; the
+    file's seconds beside a decode-only floor and the single-thread C++
+    end to end (single-thread decode + native.baseline_profile, whose
+    counters must equal the port's); each kernel held against its plain
+    version on the histogram inputs of profile_file's run and the CLI's.
+    Returns the kernel rows."""
+    from slimm_tpu_torch import cli
+    from slimm_tpu_torch.config import EngineOptions, ProfileOptions
+    from slimm_tpu_torch.engine.reports import write_abundance
+    from slimm_tpu_torch.io import native
+    from slimm_tpu_torch.utils import workload
+
+    t0 = time.perf_counter()
+    w, db, sam_tsv = stream_files
+    d = os.path.join(tmp, "bam")
+    os.makedirs(d)
+    bam = os.path.join(d, "stream.bam")
+    mb = workload.write_bench_bam(bam, w, 50)
+    log(f"  wrote {len(w['read_id'])}-record BAM ({mb:.1f} MB; the overlap "
+        f"path from {EngineOptions().overlap_min_bytes / 2**20:.0f} MB): "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    def profile(fetch_coverage=False):
+        st = pipeline.profile_file(
+            ProfileOptions(), copy.deepcopy(db), bam, device=device,
+            engine=EngineOptions(fetch_coverage=fetch_coverage,
+                                 phase_log=False))
+        sync()
+        return st
+
+    # the path, the TSV and the counters: one run with the histograms, its
+    # histogram inputs kept
+    hist.reset_launch_counts()
+    pipeline.reset_path_counts()
+    with recorded_hists(pipeline) as calls:
+        st = profile(fetch_coverage=True)
+    launches = add_launches(hist)
+    counts = {k: v for k, v in pipeline.path_counts.items() if v}
+    taken = "overlap" if pipeline.path_counts["overlap_files"] else \
+        "whole-file"
+    write_abundance(st, os.path.join(d, "lib") + "/", bam)
+    got = open(os.path.join(d, "lib", "stream_profile.tsv"), "rb").read()
+    require(got == sam_tsv, "BAM: profile_file's TSV differs from the SAM's")
+    require(device == "cpu" or (launches[0] > 0 and launches[1] > 0),
+            f"profile_file on the BAM launched (hist1, hist2) = {launches}")
+    log(f"  profile_file on the BAM: the {taken} path (counts {counts}), "
+        f"launches hist1={launches[0]} hist2={launches[1]}, TSV equal to "
+        f"the SAM's ({len(got)} bytes)")
+
+    # the CLI on the BAM
+    db_path = os.path.join(d, "stream.sldb")
+    db.save_sldb(db_path)
+    hist.reset_launch_counts()
+    pipeline.reset_path_counts()
+    c0 = time.perf_counter()
+    with recorded_hists(pipeline) as cli_calls:
+        quiet_cli(cli, ["profile", "--device", device, "-o",
+                        os.path.join(d, "cli") + "/", db_path, bam])
+    cli_secs = time.perf_counter() - c0
+    launches = add_launches(hist)
+    require(device == "cpu" or (launches[0] > 0 and launches[1] > 0),
+            f"the CLI on the BAM launched (hist1, hist2) = {launches}")
+    require(open(os.path.join(d, "cli", "stream_profile.tsv"), "rb").read()
+            == sam_tsv, "BAM: the CLI's TSV differs from the SAM's")
+    log(f"  profile CLI on the BAM: TSV equal to the SAM's, {cli_secs:.3f} "
+        f"s, launches hist1={launches[0]} hist2={launches[1]}")
+
+    # a warm run of each, then BAM_REPS turns of the three
+    def decode_floor():
+        native.NativeAlignmentFile(bam).load()
+
+    cpp = {}
+
+    def cpp_e2e():
+        b = native.NativeAlignmentFile(bam, single_thread=True).load()
+        cpp["secs"], cpp["counters"] = native.baseline_profile(
+            b.read_id.astype(np.int32), b.rid, b.pos, b.n_reads,
+            w["lengths"], w["lineage"], b.avg_read_length, b.avg_read_length)
+        cpp["targets"] = len(b.read_id)
+
+    ways = {"file": profile, "decode_floor": decode_floor, "cpp_e2e": cpp_e2e}
+    times = {way: [] for way in ways}
+    for rep in range(BAM_REPS + 1):
+        for way, fn in ways.items():
+            c0 = time.perf_counter()
+            fn()
+            if rep:
+                times[way].append(time.perf_counter() - c0)
+    med = {way: float(np.median(t)) for way, t in times.items()}
+    # the decoded (deduped) targets, as bench.py feeds them, and the raw
+    # records as written, whose count is the state's hits
+    bad = baseline_mismatch(cpp["counters"], st, cpp["targets"])
+    _, raw = native.baseline_profile(
+        w["read_id"], w["rid"], w["pos"], w["n_reads"], w["lengths"],
+        w["lineage"], w["avg_read_len"], w["avg_read_len"])
+    bad.update({f"{k} (raw records)": v for k, v in
+                baseline_mismatch(raw, st, st.hits_count).items()})
+    require(not bad, f"BAM: the C++ baseline's counters differ from the "
+            f"port's (C++, port): {bad}")
+    log(smi)
+    n = st.hits_count
+    log(f"  {n}-record BAM ({mb:.1f} MB), median of {BAM_REPS} in turns "
+        f"after a warm run, {device}: file {med['file']:.3f} s "
+        f"({' / '.join(f'{x:.3f}' for x in times['file'])}; "
+        f"{n / med['file']:.0f} records/s), decode-only floor "
+        f"{med['decode_floor']:.3f} s ("
+        f"{' / '.join(f'{x:.3f}' for x in times['decode_floor'])}), "
+        f"single-thread C++ end to end {med['cpp_e2e']:.3f} s ("
+        f"{' / '.join(f'{x:.3f}' for x in times['cpp_e2e'])}; last: "
+        f"baseline_profile {cpp['secs']:.3f} s of it; "
+        f"{n / med['cpp_e2e']:.0f} records/s); file against C++ "
+        f"{med['cpp_e2e'] / med['file']:.2f}x; counters equal "
+        f"{cpp['counters']}")
+
+    # the kernels on the inputs the BAM's path gave them: profile_file's
+    # run (with the coverage histograms, so pass B's index is
+    # [uniq_cov2 | taxa]) and the CLI's pass B over [contigs | taxa]
+    for run_calls in (calls, cli_calls):
+        kinds = [c[0] for c in run_calls]
+        require(kinds == ["hist2", "hist1", "hist1"],
+                f"the BAM's path called the histograms as {kinds}")
+    cases = {"passA_real": calls[0], "passB_real": cli_calls[1],
+             "pairs_real": calls[2], "cov2_real": calls[1]}
+    rows = [kernel_case(torch, hist, batch_time, f"bam_{case}", *call)
+            for case, call in cases.items()]
+    phase("bam", t0)
+    return rows
 
 
 def host_route(np, arrays, n, D):
@@ -836,6 +1042,46 @@ def quiet_cli(cli, argv):
                            f"{err.getvalue()[-3000:]}")
 
 
+# the parts of a -d run's host time, by the pipeline's mark (host_marks)
+# that ends each, and the TSV writes that follow a group
+SPLIT_PARTS = {"decoded": "decode",
+               "tables": "group prep, tables built and uploaded",
+               "cutoffs": "records up, pass A, sums, cutoff sync",
+               "fetched": "pass B, packing, packed fetch",
+               "finalized": "_finalize_state", "written": "TSV writes"}
+
+
+def host_split(pipeline, db_path, paths, per_group, out_dir):
+    """`paths` profiled as the CLI's -d does on one device (sorted by size,
+    profile_files_batched per group of `per_group`, each abundance TSV
+    written), with the host clock read at the pipeline's fixed points
+    (pipeline.host_marks) and after each group's writes.  Returns the
+    seconds of each part of SPLIT_PARTS, summed over the groups."""
+    from slimm_tpu_torch.config import EngineOptions, ProfileOptions
+    from slimm_tpu_torch.database import SlimmDatabase
+    from slimm_tpu_torch.engine.reports import write_abundance
+
+    db = SlimmDatabase.load(db_path)
+    by_size = sorted(paths, key=os.path.getsize)
+    pipeline.host_marks = marks = []
+    try:
+        for i in range(0, len(by_size), per_group):
+            marks.append(("start", time.perf_counter()))
+            for path, st in pipeline.profile_files_batched(
+                    ProfileOptions(), db, by_size[i:i + per_group],
+                    engine=EngineOptions(fetch_coverage=False,
+                                         phase_log=False)):
+                write_abundance(st, out_dir + "/", path)
+            marks.append(("written", time.perf_counter()))
+    finally:
+        pipeline.host_marks = None
+    parts = dict.fromkeys(SPLIT_PARTS.values(), 0.0)
+    for (_, t_prev), (point, t) in zip(marks, marks[1:]):
+        if point != "start":
+            parts[SPLIT_PARTS[point]] += t - t_prev
+    return parts
+
+
 def dir_phase(torch, np, pipeline, hist, batch_time, tmp, bench_files, smi):
     """`profile -d` on 16 SAMs of one header, batched (groups of
     files_per_dispatch) and as a per-file loop (files_per_dispatch=1),
@@ -930,11 +1176,30 @@ def dir_phase(torch, np, pipeline, hist, batch_time, tmp, bench_files, smi):
     log(f"  -d decode-only floor (open_alignment_file(path).load() of each "
         f"file): {' / '.join(f'{x:.3f}' for x in floor)} s")
 
+    # where a small file's host time goes: one more run of each way with
+    # the host clock read at the pipeline's fixed points
+    paths = [os.path.join(indir, name) for name in names]
+    split = {}
+    for way, per in (("batched", per_group), ("per_file", 1)):
+        out = os.path.join(d, way + "_split")
+        c0 = time.perf_counter()
+        split[way] = host_split(pipeline, db_path, paths, per, out)
+        split[way]["all of the run"] = time.perf_counter() - c0
+        for name in names:
+            tsv = name[:-len(".sam")] + "_profile.tsv"
+            require(open(os.path.join(out, tsv), "rb").read()
+                    == open(os.path.join(d, "batched", tsv), "rb").read(),
+                    f"-d split run {way}: {tsv} differs from the CLI's")
+    log(f"  -d host time per file, ms (batched / per file), one run of "
+        f"{len(names)} files each, TSVs equal to the CLI's:")
+    for part in split["batched"]:
+        log(f"    {part:44s} {split['batched'][part] / len(names) * 1e3:8.3f}"
+            f" / {split['per_file'][part] / len(names) * 1e3:8.3f}")
+
     # the kernels on the histogram inputs of one group
-    paths = [os.path.join(indir, name) for name in names[:per_group]]
     with recorded_hists(pipeline) as calls:
         pipeline.profile_files_batched(
-            ProfileOptions(), SlimmDatabase.load(db_path), paths,
+            ProfileOptions(), SlimmDatabase.load(db_path), paths[:per_group],
             engine=EngineOptions(fetch_coverage=False, phase_log=False))
     kinds = [c[0] for c in calls]
     require(kinds == ["hist2", "hist1", "hist1"],
@@ -999,7 +1264,8 @@ def trace_phase(hist, tmp, bench_files, smi):
 def multi_child(backend, init_method, world, rank, db_path, sam, out_dir):
     """One process of a torch.distributed world: `sam` profiled through
     MultiHostRunner whole-file and streamed, each TSV written under
-    out_dir; prints one `MULTI {json}` line with seconds and launches."""
+    out_dir; prints one `MULTI {json}` line with seconds, launches and the
+    runner's collective payload bytes."""
     world, rank = int(world), int(rank)
     sys.path.insert(0, ROOT)
     import torch
@@ -1030,6 +1296,8 @@ def multi_child(backend, init_method, world, rank, db_path, sam, out_dir):
                  dict(chunk_targets=STREAM_CHUNK))):
             hist.reset_launch_counts()
             pipeline.reset_path_counts()
+            for issued in runner.collective_bytes.values():
+                issued.clear()              # the runner's counts accumulate
             c0 = time.perf_counter()
             st = fn(ProfileOptions(), copy.deepcopy(db), sam,
                     engine=EngineOptions(fetch_coverage=False,
@@ -1041,7 +1309,8 @@ def multi_child(backend, init_method, world, rank, db_path, sam, out_dir):
             report[label] = dict(
                 secs=secs, hist1=hist.hist1_launches,
                 hist2=hist.hist2_launches,
-                paths={k: v for k, v in pipeline.path_counts.items() if v})
+                paths={k: v for k, v in pipeline.path_counts.items() if v},
+                collective_bytes=copy.deepcopy(runner.collective_bytes))
         print("MULTI " + json.dumps(report), flush=True)
     finally:
         dist.destroy_process_group()
@@ -1106,6 +1375,7 @@ def multi_phase(np, pipeline, tmp, bench_files):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+    sent_by_label = {}
     for (backend, _, world, rank, _), p, out in zip(jobs, procs, outs):
         tag = f"{backend} world {world} rank {rank}"
         require(p.returncode == 0, f"{tag} exited {p.returncode}:\n"
@@ -1124,9 +1394,16 @@ def multi_phase(np, pipeline, tmp, bench_files):
             require(len(tsv) == 1 and open(os.path.join(out_dir, tsv[0]),
                                            "rb").read() == want,
                     f"{tag} {label}: TSV differs from the one-process run's")
+            sent = r["collective_bytes"]
+            # the same tables in every world: the same payload
+            sent_by_label.setdefault(label, sent)
+            require(sent["all_reduce"] and sent == sent_by_label[label],
+                    f"{tag} {label}: collective payload {sent}, another "
+                    f"process's {sent_by_label[label]}")
             log(f"  {tag} {label}: TSV equal ({len(want)} bytes), "
                 f"{r['secs']:.3f} s, launches hist1={r['hist1']} "
-                f"hist2={r['hist2']}, counts {r['paths']}")
+                f"hist2={r['hist2']}, counts {r['paths']}; collective "
+                f"payload {sum(map(sum, sent.values()))} B: {sent}")
     phase("multi", t0)
 
 
@@ -1186,7 +1463,11 @@ def main() -> int:
 
     tmp = tempfile.mkdtemp(prefix="slimm_chip_smoke_")
     try:
-        stream_phase(torch, np, pipeline, hist, tmp, "cuda", smi[0])
+        stream_files = stream_phase(torch, np, pipeline, hist, tmp, "cuda",
+                                    smi[0])
+        rows += bam_phase(torch, np, pipeline, hist, batch_time, tmp, "cuda",
+                          smi[0], stream_files)
+        del stream_files
         main_launches, bench_files = cli_phase(hist, tmp, [])
         rows += dir_phase(torch, np, pipeline, hist, batch_time, tmp,
                           bench_files, smi[0])

@@ -13,10 +13,13 @@ above 1 profile over a (data x model) grid of devices
 being an error, or the CPU D*M times over with `--device cpu`.  `-d` on one
 device profiles the directory's files in groups of
 `EngineOptions.files_per_dispatch`, each group as one profile
-(engine.pipeline.profile_files_batched), as slimm_tpu's `-d` does.
-`--trace-dir DIR` runs each file's profile inside torch.profiler and writes
-one Chrome trace per input into DIR (CUDA activity too on the card); it
-profiles file by file, as in slimm_tpu.
+(engine.pipeline.profile_files_batched), as slimm_tpu's `-d` does.  Under
+the multi-process launcher (`python -m slimm_tpu_torch.parallel.multihost`)
+each process profiles its round-robin share of the directory's files, and
+a single input file is profiled by process 0 alone.  `--trace-dir DIR`
+runs each file's profile inside torch.profiler and writes one Chrome trace
+per input into DIR (CUDA activity too on the card); it profiles file by
+file, as in slimm_tpu.
 """
 
 from __future__ import annotations
@@ -230,6 +233,16 @@ def _json_stats(state, path) -> dict:
     }
 
 
+def _process_share() -> tuple:
+    """(rank, world size) of this process's torch.distributed group, set up
+    by the launcher (parallel/multihost.py); (0, 1) without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def cmd_profile(args) -> int:
     import torch
 
@@ -277,6 +290,20 @@ def cmd_profile(args) -> int:
     stop_watch = Timer()
     paths = collect_bam_files(options.input_path, options.is_directory,
                               options.verbose)
+    rank, world = _process_share()
+    if world > 1:
+        # under the multi-process launcher: each process profiles its own
+        # share of the inputs, round-robin in collect_bam_files' order; one
+        # input file is process 0's
+        from .parallel.multihost import shard_paths
+        if options.is_directory:
+            paths = shard_paths(paths, rank, world)
+        elif rank != 0:
+            paths = []
+        print(f"[MSG] process {rank} of {world}: profiling {len(paths)} of "
+              "the input files", file=sys.stderr)
+        if not paths:
+            return 0
     db = SlimmDatabase.load(options.database_path)
 
     # directory mode on one device (slimm_tpu/cli.py:195-215): groups of
@@ -367,8 +394,9 @@ def main(argv=None) -> int:
         if args.command == "build":
             return cmd_build(args)
         return cmd_collect(args)
-    except (ValueError, OSError, ZeroDivisionError) as e:
-        # decode/DB errors surface as a message + exit 1 (slimm_tpu.cli)
+    except (ValueError, OSError, ZeroDivisionError, OverflowError) as e:
+        # decode/DB errors surface as a message + exit 1 (slimm_tpu.cli), as
+        # does a bin table past int32 (tables.DeviceTables.from_numpy)
         print(f"[ERROR] {e}", file=sys.stderr)
         return 1
 

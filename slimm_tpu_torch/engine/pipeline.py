@@ -48,6 +48,7 @@ import os
 import queue
 import sys
 import threading
+import time
 from dataclasses import dataclass
 from typing import Callable
 
@@ -93,6 +94,18 @@ path_counts = dict.fromkeys((
 def reset_path_counts():
     for key in path_counts:
         path_counts[key] = 0
+
+
+# Host-clock marks of profile_files_batched, for a caller that splits its
+# time: None (off), or a list that gets (point, time.perf_counter()) where
+# the decode, a group's tables, its cutoff sync, its packed fetch and each
+# file's _finalize_state end
+host_marks = None
+
+
+def _mark(point: str) -> None:
+    if host_marks is not None:
+        host_marks.append((point, time.perf_counter()))
 
 
 # copied from slimm_tpu/engine/pipeline.py:82-94 (the v2 stream's piece cap)
@@ -561,6 +574,7 @@ def _core_after_a(grid: Grid, cov, uniq_cov, uniq_matches, pass_b_pieces, *,
     rc, nzc = _slice_sums(grid, cov_m)
     urc, nzu = _slice_sums(grid, ucov_m)
     cc, ucc, valid_mask = _cutoffs(rc, nzc, urc, nzu, t0)
+    _mark("cutoffs")
     slices = grid.slices if M > 1 else None
     accs = []
     for d in range(D):
@@ -881,19 +895,32 @@ def _finalize_state(st, out, dense, engine, options, timer):
     st.uniq_matches_count2 = stats["uniq_matches2"]
 
     # dense LCA counts + children pairs -> taxid dicts
-    counts = stats["taxon_counts"]
+    taxon_counts_into(st, stats["taxon_counts"], dense)
+    pairs_into(st, packed_np[6 * n_contigs + _N_SCALARS + dense.n_dense:],
+               dense)
+    st.propagate_counts()
+    timer.lap()
+    return st
+
+
+def taxon_counts_into(st, counts, dense) -> None:
+    """The dense LCA counts int[n_dense] added to st.taxon_id__read_count
+    (by taxid)."""
     for d in np.flatnonzero(counts > 0).tolist():
         tid = int(dense.dense_to_tid[d])
         st.taxon_id__read_count[tid] = (
             st.taxon_id__read_count.get(tid, 0) + int(counts[d]))
-    base = 6 * n_contigs + _N_SCALARS + dense.n_dense
-    # bitpacked (contig x level-code) presence in the packed tail: code < 8
-    # is the read's first agreeing lineage level L (the lca is lineage[r][L]),
-    # code 8 + k means no level agreed (the lca is the k-th superkingdom id)
-    pbytes = np.ascontiguousarray(packed_np[base:]).view(np.uint8)
+
+
+def pairs_into(st, pair_words, dense) -> None:
+    """The bitpacked (contig x level code) pair presence of the packed tail
+    (int32 words) added to st.taxon_id__children: code < 8 is the read's
+    first agreeing lineage level L (the lca is lineage[r][L]), code 8 + k
+    means no level agreed (the lca is the k-th superkingdom id)."""
+    pbytes = np.ascontiguousarray(pair_words).view(np.uint8)
     n_codes = dense.n_pair_codes
     pres = np.unpackbits(pbytes, bitorder="little")
-    nz = np.flatnonzero(pres[:n_contigs * n_codes])
+    nz = np.flatnonzero(pres[:len(dense.lineage) * n_codes])
     r = (nz // n_codes).astype(np.int64)
     code = (nz % n_codes).astype(np.int64)
     lvl = code < 8
@@ -909,10 +936,6 @@ def _finalize_state(st, out, dense, engine, options, timer):
     for i, tid in enumerate(tids.tolist()):
         st.taxon_id__children.setdefault(int(tid), set()).update(
             col[starts[i]:bounds[i + 1]].tolist())
-
-    st.propagate_counts()
-    timer.lap()
-    return st
 
 
 # copied from slimm_tpu/engine/pipeline.py:1253-1263
@@ -1406,7 +1429,32 @@ def profile_file_streaming(options: ProfileOptions, db: SlimmDatabase,
 # themselves, so one pass A, one cutoff sync and one pass B serve the group,
 # each histogram one kernel launch, and every packed vector comes back in
 # one fetch.  Every count stays per contig, per bin or per taxon of one
-# file, so the result is each file's own.
+# file, so the result is each file's own.  The group-wide read ids, bins
+# and record indices are int32, so a group whose sums would pass
+# GROUP_LIMIT is cut into sub-groups first (plan_subgroups); the JAX
+# package keeps each file's domain to itself and needs no such cut.
+
+# The most that a group's summed read ids, bins or records may reach
+GROUP_LIMIT = int(np.iinfo(np.int32).max)
+
+
+def plan_subgroups(sizes) -> list:
+    """Cut a group into runs of consecutive files to profile as one.
+    sizes[k] = (reads, bins, records) of file k in group order; in every run
+    each of the three sums stays at or below GROUP_LIMIT.  A file past the
+    limit alone makes a run of its own.  Returns the runs as lists of
+    file indices."""
+    runs, run, total = [], [], (0, 0, 0)
+    for k, size in enumerate(sizes):
+        summed = tuple(a + int(b) for a, b in zip(total, size))
+        if run and max(summed) > GROUP_LIMIT:
+            runs.append(run)
+            run, summed = [], tuple(int(b) for b in size)
+        run.append(k)
+        total = summed
+    if run:
+        runs.append(run)
+    return runs
 
 
 def profile_files_batched(options: ProfileOptions, db: SlimmDatabase,
@@ -1417,13 +1465,16 @@ def profile_files_batched(options: ProfileOptions, db: SlimmDatabase,
     and gets its own copy of `options` (hence its own bin_width); a file
     with no hits keeps its state and is warned about.  Files whose headers
     differ are profiled one by one through profile_file
-    (pipeline.py:1876-2000)."""
+    (pipeline.py:1876-2000).  A group past GROUP_LIMIT is profiled in
+    sub-groups (plan_subgroups), and a file past it alone through
+    profile_file."""
     device = _device(device, None)
     engine = engine or EngineOptions()
     decoded = []
     for path in paths:
         af = open_alignment_file(path, engine)
         decoded.append((path, af, af.load()))
+    _mark("decoded")
     names0 = list(decoded[0][1].contig_names)
     lengths0 = np.asarray(decoded[0][1].contig_lengths)
     same_ref = all(
@@ -1442,7 +1493,7 @@ def profile_files_batched(options: ProfileOptions, db: SlimmDatabase,
     timer.start("Intializing coverages for all reference genome ... ")
     dense = tensorize(db, names0)
     preps, empties = [], []
-    for path, _, batch in decoded:
+    for path, af, batch in decoded:
         opts_k = copy.deepcopy(options)
         st = ProfileState(options=opts_k, ac__taxid=db.ac__taxid,
                           taxid__name=db.taxid__name)
@@ -1456,23 +1507,44 @@ def profile_files_batched(options: ProfileOptions, db: SlimmDatabase,
             empties.append((path, st))
         else:
             preps.append((path, st, opts_k, batch))
+    # from here each decoded batch is held in preps alone (a native file
+    # holds its decoded records too, until it is let go)
+    del decoded, af, batch
     timer.lap()
 
-    outs = []
+    results, grouped = {}, []
     if preps:
         timer.start("Analysing alignments, reads and references ....... ")
-        outs = _profile_group(preps, dense, device, engine)
-        path_counts["batched_groups"] += 1
+        sizes = [_group_size(st, b) for _, st, _, b in preps]
+        for run in plan_subgroups(sizes):
+            if max(sizes[run[0]]) > GROUP_LIMIT:
+                # alone past the limit: as one file is profiled, which
+                # decodes it again, so its first decode is let go before
+                path = preps[run[0]][0]
+                preps[run[0]] = None
+                results[path] = profile_file(copy.deepcopy(options), db, path,
+                                             device=device, engine=engine)
+                continue
+            group = [preps[k] for k in run]
+            grouped += zip(group, _profile_group(group, dense, device,
+                                                 engine))
+            path_counts["batched_groups"] += 1
         timer.lap()
-    results = {}
     for path, st in empties:
         print("[WARNING] No mapped reads found in BAM file!", file=sys.stderr)
         results[path] = st
-    for (path, st, opts_k, _), out in zip(preps, outs):
+    for (path, st, opts_k, _), out in grouped:
         _finalize_state(st, out, dense, engine, opts_k,
                         PhaseTimer(enabled=False))
+        _mark("finalized")
         results[path] = st
-    return [(path, results[path]) for path, _, _ in decoded]
+    return [(path, results[path]) for path in paths]
+
+
+def _group_size(st, batch) -> tuple:
+    """(reads, bins, records) that a file adds to a group's domains."""
+    return (int(batch.read_id.max()) + 1, int(st.nbins.sum()),
+            len(batch.read_id))
 
 
 def _profile_group(preps, dense, device, engine) -> list:
@@ -1487,10 +1559,13 @@ def _profile_group(preps, dense, device, engine) -> list:
     k_steps, window = plan_from_max_run(max(
         b.max_targets or seg_plan(b.read_id)[0] for b in batches))
     # each file's read ids after the earlier files'
+    sums = np.sum([_group_size(st, b) for st, b in zip(states, batches)],
+                  axis=0, dtype=np.int64)
+    if len(preps) > 1 and sums.max() > GROUP_LIMIT:
+        raise OverflowError(f"(reads, bins, records) of a group of files "
+                            f"{tuple(sums.tolist())} pass GROUP_LIMIT: "
+                            "plan_subgroups cuts such a group first")
     reads = np.array([int(b.read_id.max()) + 1 for b in batches])
-    if reads.sum() > np.iinfo(np.int32).max:
-        raise OverflowError(f"{reads.sum()} reads in a group of files: the "
-                            "read ids pass int32 (lower files_per_dispatch)")
     read_id = np.concatenate([b.read_id + r for b, r in
                               zip(batches, np.cumsum(reads) - reads)])
     rid = np.concatenate([np.asarray(b.rid) + k * C
@@ -1498,6 +1573,7 @@ def _profile_group(preps, dense, device, engine) -> list:
     pos = np.concatenate([b.pos for b in batches])
     grid = Grid.single(group_tables(
         states, [opts for _, _, opts, _ in preps], dense, device))
+    _mark("tables")
     out = fused_profile_shards(grid, grid.shards(read_id, rid, pos),
                                dedup_window=0, k_steps=k_steps,
                                window=window,
@@ -1511,4 +1587,5 @@ def _profile_group(preps, dense, device, engine) -> list:
         outs.append(dict(packed=packed[k],
                          **{key: h[lo:hi] for key, h in hists.items()}))
         lo = hi
+    _mark("fetched")
     return outs

@@ -111,6 +111,17 @@ def load_library():
         np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")] * 3
     lib.stpu_close.restype = None
     lib.stpu_close.argtypes = [ctypes.c_void_p]
+    lib.stpu_dedup_targets.restype = ctypes.c_int64
+    lib.stpu_dedup_targets.argtypes = [
+        ctypes.c_int64,
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        ctypes.POINTER(ctypes.c_double),
+    ]
     lib.stpu_stream_open.restype = ctypes.c_void_p
     lib.stpu_stream_open.argtypes = [ctypes.c_char_p]
     lib.stpu_stream_open2.restype = ctypes.c_void_p
@@ -146,6 +157,18 @@ def load_library():
         + [ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64)])
     lib.stpu_stream_close.restype = None
     lib.stpu_stream_close.argtypes = [ctypes.c_void_p]
+    lib.stpu_baseline_profile.restype = ctypes.c_double
+    lib.stpu_baseline_profile.argtypes = [
+        ctypes.c_int64,
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        ctypes.c_int64, ctypes.c_int32,
+        np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+    ]
     _lib = lib
     return lib
 
@@ -211,6 +234,20 @@ class NativeAlignmentFile:
             self.close()
         except Exception:
             pass
+
+
+def sldb_roundtrip(in_path: str, out_path: str) -> None:
+    """Parse an .sldb with the independent C++ cereal-layout reader and
+    re-serialize it (order-preserving).  Raises on structural errors."""
+    lib = load_library()
+    lib.stpu_sldb_roundtrip.restype = ctypes.c_int
+    lib.stpu_sldb_roundtrip.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
+                                        ctypes.c_char_p, ctypes.c_int]
+    err = ctypes.create_string_buffer(512)
+    rc = lib.stpu_sldb_roundtrip(in_path.encode(), out_path.encode(), err,
+                                 len(err))
+    if rc != 0:
+        raise ValueError(f"{in_path}: {err.value.decode()}")
 
 
 class NativeStreamReader:
@@ -443,3 +480,39 @@ def propagate(n_contigs: int, lineage, tax, cnt, rnk, ctax, coff, cch,
     lib.stpu_propagate_take(h, out_tax, out_cnt, out_flags, out_choff,
                             out_cch)
     return out_tax, out_cnt, out_flags, out_choff, out_cch[:int(n_elems.value)]
+
+
+def dedup_targets(read_id, rid, pos):
+    """First-hit (read, contig) dedup in C++; returns (targets, seconds)."""
+    lib = load_library()
+    read_id = np.ascontiguousarray(read_id, np.int32)
+    rid = np.ascontiguousarray(rid, np.int32)
+    pos = np.ascontiguousarray(pos, np.int32)
+    n = len(read_id)
+    out_read = np.empty(n, np.int32)
+    out_rid = np.empty(n, np.int32)
+    out_pos = np.empty(n, np.int32)
+    secs = ctypes.c_double()
+    kept = lib.stpu_dedup_targets(n, read_id, rid, pos, out_read, out_rid,
+                                  out_pos, ctypes.byref(secs))
+    return (out_read[:kept], out_rid[:kept], out_pos[:kept]), secs.value
+
+
+def baseline_profile(read_id, rid, pos, n_reads, lengths, lineage,
+                     avg_read_len, bin_width, cov_cut_off=0.95):
+    """Run the single-core C++ baseline; returns (seconds, counters dict)."""
+    lib = load_library()
+    out = np.zeros(8, np.int64)
+    read_id = np.ascontiguousarray(read_id, np.int32)
+    rid = np.ascontiguousarray(rid, np.int32)
+    pos = np.ascontiguousarray(pos, np.int32)
+    lengths = np.ascontiguousarray(lengths, np.uint32)
+    lineage = np.ascontiguousarray(lineage, np.int32)
+    secs = lib.stpu_baseline_profile(
+        len(read_id), read_id, rid, pos, int(n_reads),
+        np.int32(len(lengths)), lengths, lineage,
+        np.uint32(avg_read_len), np.uint32(bin_width),
+        np.float32(cov_cut_off), out)
+    keys = ("hits", "matches", "uniq_matches", "uniq_matches2",
+            "n_valid_refs", "lca_total", "cov_mass", "uniq_cov2_mass")
+    return secs, dict(zip(keys, out.tolist()))

@@ -20,9 +20,19 @@ without a GPU the defaults raise.  The launcher, one command per process,
         --init-method tcp://host0:29500 --world-size 4 --rank $RANK -- \\
         profile DB.sldb reads_dir -d -o out/
 
-is the reference's thin wrapper: it initialises the process group and runs
-the ordinary CLI, which reaches neither MultiHostRunner nor shard_paths, so
-every process profiles every input (ROADMAP C2).
+initialises the process group and runs the ordinary CLI, which learns the
+rank and world size from torch.distributed: with `-d` each process profiles
+its share of the directory (`shard_paths`, round-robin in the CLI's file
+order) and writes those files' reports, each input once, with the bytes of
+a one-process run; a single input file is profiled by process 0 and the
+others exit 0.  The processes own whole files, so `-d` issues no
+collective.  Splitting one file by read across the launcher's processes is
+not done here (the library entry points above do it).
+
+`MultiHostRunner.collective_bytes` counts the payload of every collective
+the runner issued, and `model_efficiency` is the time model over
+hosts that the bench's scaling study uses; it takes a link rate, which is
+not measured for the card's links yet.
 """
 
 from __future__ import annotations
@@ -72,8 +82,16 @@ def shard_paths(paths: list, rank: int | None = None,
     return [p for i, p in enumerate(paths) if i % world_size == rank]
 
 
-def _all_reduce(x: torch.Tensor) -> None:
-    dist.all_reduce(x, op=dist.ReduceOp.SUM)
+def model_efficiency(step_secs, payload_bytes, hosts, link_bw,
+                     replicated_secs):
+    """Ring all-reduce over `hosts` links: 2*(H-1)/H * payload per link.
+    Copied from bench_scaling.py:119-126: the time model only, no link
+    rate."""
+    t1 = step_secs + replicated_secs
+    th = (step_secs / hosts
+          + 2 * (hosts - 1) / hosts * payload_bytes / link_bw
+          + replicated_secs)
+    return t1 / (hosts * th)
 
 
 class MultiHostRunner(ShardedRunner):
@@ -82,7 +100,11 @@ class MultiHostRunner(ShardedRunner):
     Each process feeds the records of ITS reads only (read ids local to the
     process) and runs them on `devices`, its data shards (default: one, the
     process's GPU cuda:LOCAL_RANK; the CPU only when given, as "cpu").
-    Without an initialized group it is a one-process ShardedRunner."""
+    Without an initialized group it is a one-process ShardedRunner.
+
+    collective_bytes: the payload bytes of each collective this process
+    issued, {"all_reduce": [...], "broadcast": [...]} in issue order; a
+    reader that wants one file's clears the lists before it."""
 
     def __init__(self, devices=None):
         if devices is None:
@@ -90,14 +112,22 @@ class MultiHostRunner(ShardedRunner):
             devices = [_local_gpu(rank)]
         super().__init__(devices=[[torch.device(d)] for d in devices])
         self.distributed = dist.is_available() and dist.is_initialized()
-        self.reduce = _all_reduce if self.distributed else None
+        self.reduce = self._all_reduce if self.distributed else None
         self._dev = self.devices[0][0]
+        self.collective_bytes = {"all_reduce": [], "broadcast": []}
+
+    def _all_reduce(self, x: torch.Tensor) -> None:
+        self.collective_bytes["all_reduce"].append(x.numel()
+                                                   * x.element_size())
+        dist.all_reduce(x, op=dist.ReduceOp.SUM)
 
     def broadcast(self, value: int) -> int:
         """Process 0's value, on every process."""
         if not self.distributed:
             return value
         x = torch.tensor([value], dtype=torch.int64, device=self._dev)
+        self.collective_bytes["broadcast"].append(x.numel()
+                                                  * x.element_size())
         dist.broadcast(x, src=0)
         return int(x.item())
 
@@ -106,7 +136,7 @@ class MultiHostRunner(ShardedRunner):
         if not self.distributed:
             return values
         x = torch.tensor(values, dtype=torch.int64, device=self._dev)
-        _all_reduce(x)
+        self._all_reduce(x)
         return tuple(int(v) for v in x.tolist())
 
 

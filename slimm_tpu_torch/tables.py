@@ -19,6 +19,18 @@ _FIRST_LEVEL = np.array([7] + [(z & -z).bit_length() - 1 for z in range(1, 256)]
                         np.int32)
 
 
+def _as_int32(a, name) -> np.ndarray:
+    """`a` as int32; a value past int32 raises OverflowError (numpy's cast
+    would wrap it silently)."""
+    a = np.asarray(a)
+    info = np.iinfo(np.int32)
+    bad = (a < info.min) | (a > info.max)
+    if bad.any():
+        raise OverflowError(f"{name}: bin {int(a[bad][0])} passes int32, "
+                            "the index type of the bin tables and kernels")
+    return a.astype(np.int32)
+
+
 @dataclass
 class DeviceTables:
     lengths: torch.Tensor      # int64[C]: contig lengths (uint32 values)
@@ -50,8 +62,8 @@ class DeviceTables:
     def from_numpy(cls, lengths, bin_offset, bin_ends, lineage, sk_code, *,
                    n_dense: int, n_codes: int, half, bin_width, q,
                    device, n_files: int = 1) -> "DeviceTables":
-        bin_offset = np.asarray(bin_offset, np.int32)
-        bin_ends = np.asarray(bin_ends, np.int32)
+        bin_offset = _as_int32(bin_offset, "bin_offset")
+        bin_ends = _as_int32(bin_ends, "bin_ends")
 
         def dev(a, dtype):
             return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)

@@ -1,9 +1,10 @@
 """The bench's synthetic workload: alignment arrays, a database and a SAM
-file made from a seed.
+or BAM file made from a seed.
 
-Copied from bench.py:48-100 (`make_workload`, `make_bench_db`) and 214-267
-(`bench_names`, `write_bench_sam`), with `make_bench_db` on the port's own
-SlimmDatabase; the arrays and file bytes are the same for the same seed.
+Copied from bench.py:48-100 (`make_workload`, `make_bench_db`), 214-267
+(`bench_names`, `write_bench_sam`) and 270-346 (`_bgzf_blocks`,
+`write_bench_bam`), with `make_bench_db` on the port's own SlimmDatabase;
+the arrays and file bytes are the same for the same seed.
 """
 
 import os
@@ -117,4 +118,83 @@ def write_bench_sam(path, w, n_contigs, block=1 << 20):
             put(o_rid, rid[lo:hi], cw)
             put(o_pos, pos[lo:hi] + 1, pw)
             f.write(m[:n])
+    return os.path.getsize(path) / 2**20
+
+
+def _bgzf_blocks(payload: bytes, out, level=1):
+    """BGZF-wrap `payload` into <=64KB deflate blocks appended to file
+    `out` (the BAM container format, SAM spec §4.1)."""
+    import struct
+    import zlib
+
+    STEP = 0xFF00
+    for lo in range(0, max(len(payload), 1), STEP):
+        chunk = payload[lo:lo + STEP]
+        co = zlib.compressobj(level, zlib.DEFLATED, -15)
+        cdata = co.compress(chunk) + co.flush()
+        bsize = len(cdata) + 25 + 1
+        out.write(struct.pack("<4BI2BH2B2H", 31, 139, 8, 4, 0, 0, 255,
+                              6, 66, 67, 2, bsize - 1))
+        out.write(cdata)
+        out.write(struct.pack("<II", zlib.crc32(chunk), len(chunk)))
+
+
+def write_bench_bam(path, w, n_contigs, block=1 << 20):
+    """Write the workload as a BAM file (BGZF container, binary records, zlib
+    level 1), the binary twin of write_bench_sam's file: the same records,
+    read names and header.  Records are built vectorized with numpy (a
+    Python struct loop would take minutes at 4M records).  Returns its size
+    in MiB."""
+    import struct
+
+    names, _ = bench_names(n_contigs)
+    rl = 4 * (w["avg_read_len"] // 4)  # the SAM twin's actual seq length
+    rid, pos, read = w["rid"], w["pos"], w["read_id"]
+    name_len = len(f"r{max(int(read.max()), 0)}")
+    # fixed-size record: header(32) + qname(name_len+1) + cigar(4)
+    # + seq(ceil(rl/2)) + qual(rl)
+    seq_b = (rl + 1) // 2
+    rec_size = 36 + name_len + 1 + 4 + seq_b + rl
+    with open(path, "wb", buffering=1 << 22) as f:
+        hdr_text = "@HD\tVN:1.6\n" + "".join(
+            f"@SQ\tSN:{nm}\tLN:{int(w['lengths'][c])}\n"
+            for c, nm in enumerate(names))
+        head = b"BAM\x01" + struct.pack("<i", len(hdr_text))
+        head += hdr_text.encode() + struct.pack("<i", n_contigs)
+        for c, nm in enumerate(names):
+            head += struct.pack("<i", len(nm) + 1) + nm.encode() + b"\0"
+            head += struct.pack("<i", int(w["lengths"][c]))
+        _bgzf_blocks(head, f)
+
+        tmpl = np.zeros(rec_size, np.uint8)
+        v32 = lambda a: a.view("<i4")  # noqa: E731
+        for lo in range(0, len(rid), block):
+            hi = min(lo + block, len(rid))
+            n = hi - lo
+            recs = np.broadcast_to(tmpl, (n, rec_size)).copy()
+            head32 = v32(recs[:, :36])
+            head32[:, 0] = rec_size - 4                 # block_size
+            head32[:, 1] = rid[lo:hi]                   # refID
+            head32[:, 2] = pos[lo:hi]                   # POS (0-based)
+            # l_read_name | mapq | bin
+            head32[:, 3] = (name_len + 1) | (60 << 8)
+            head32[:, 4] = 1 | (0 << 16)                # n_cigar | flag=0
+            head32[:, 5] = rl                           # l_seq
+            head32[:, 6] = -1                           # next_refID
+            head32[:, 7] = -1                           # next_pos
+            head32[:, 8] = 0                            # tlen
+            # qname "r<digits>" zero-padded to fixed width + NUL
+            digits = read[lo:hi].astype(np.int64)
+            recs[:, 36] = ord("r")
+            for k in range(name_len - 1):
+                recs[:, 36 + name_len - 1 - k] = (
+                    ord("0") + (digits // 10**k) % 10)
+            recs[:, 36 + name_len] = 0
+            cig = v32(recs[:, 36 + name_len + 1:36 + name_len + 5])
+            cig[:, 0] = rl << 4                         # <rl>M
+            body = recs[:, 36 + name_len + 5:]
+            body[:, :seq_b] = 0x12                      # ACAC... 4-bit
+            body[:, seq_b:] = 40                        # qual 'I'
+            _bgzf_blocks(recs.tobytes(), f)
+        _bgzf_blocks(b"", f)  # EOF marker
     return os.path.getsize(path) / 2**20

@@ -15,6 +15,7 @@ import io
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -190,6 +191,127 @@ def test_cli_directory_bytes_match_slimm_tpu(toy_dir, tmp_path):
     for name in names:
         assert filecmp.cmp(outs["jax"] + name, outs["torch"] + name,
                            shallow=False), name
+
+
+# -- a group's int32 domains --------------------------------------------------
+
+
+@pytest.mark.parametrize("limit_of", ["reads", "bins", "records"])
+def test_plan_subgroups_splits_at_each_limit(limit_of, monkeypatch):
+    # sizes (reads, bins, records); one of the three sums reaches the limit
+    # at file 2, and file 4 passes it alone
+    monkeypatch.setattr(tp, "GROUP_LIMIT", 100)
+    axis = ("reads", "bins", "records").index(limit_of)
+
+    def size(x):
+        s = [10, 10, 10]
+        s[axis] = x
+        return tuple(s)
+
+    sizes = [size(40), size(60), size(1), size(20), size(101), size(5)]
+    assert tp.plan_subgroups(sizes) == [[0, 1], [2, 3], [4], [5]]
+    # at the limit exactly stays one group; the other two sums never cut
+    assert tp.plan_subgroups([size(50), size(50)]) == [[0, 1]]
+    assert tp.plan_subgroups([(10, 10, 10)] * 10) == [list(range(10))]
+    assert tp.plan_subgroups([]) == []
+
+
+def _stand_in_state(length, bin_width):
+    """What group_tables reads of a ProfileState: one contig of `length`
+    bases at `bin_width`."""
+    return types.SimpleNamespace(
+        lengths=np.array([length], np.int64), bin_offset=np.zeros(1, np.int64),
+        nbins=np.array([length // bin_width + 1], np.int64),
+        avg_read_length=100)
+
+
+@pytest.mark.parametrize("files,past", [(1, 2**31), (2, 2**31), (3, 2**32)])
+def test_group_tables_raise_instead_of_wrapping(files, past):
+    # contigs of 4e9 bp at bin width 2 (one file: width 1), 2e9 + 1 bins a
+    # file: the group's last bin end passes 2^31 or 2^32, where numpy's
+    # int32 cast would wrap it to a negative end, or past 2^32 to a
+    # positive, silently wrong one
+    import re
+
+    from slimm_tpu_torch.config import ProfileOptions as TProfileOptions
+    from slimm_tpu_torch.database import SlimmDatabase, tensorize
+    from slimm_tpu_torch.tables import group_tables
+
+    width = 1 if files == 1 else 2
+    states = [_stand_in_state(4_000_000_000, width) for _ in range(files)]
+    assert sum(int(st.nbins[0]) for st in states) > past
+    db = SlimmDatabase()
+    db.ac__taxid["c1"] = [9, 8, 7, 6, 5, 4, 3, 2]
+    for lvl, tid in enumerate(db.ac__taxid["c1"]):
+        db.taxid__name[tid] = (lvl, f"t{tid}")
+    with pytest.raises(OverflowError, match="passes int32") as e:
+        group_tables(states, [TProfileOptions(bin_width=width)] * files,
+                     tensorize(db, ["c1"]), CPU)
+    assert int(re.search(r"bin (\d+)", str(e.value)).group(1)) > 2**31 - 1
+
+
+@pytest.mark.parametrize("limit,groups,alone", [(None, 1, 0), (720, 2, 0),
+                                                (100, 0, 3)])
+def test_cli_directory_splits_past_group_limit(limit, groups, alone, toy_dir,
+                                               tmp_path, monkeypatch):
+    # -d over the toy directory with GROUP_LIMIT lowered: at 720 the three
+    # files (376, 339 and 313 bins) make two sub-groups, at 100 each file
+    # passes it alone and is profiled by profile_file; the bytes stay
+    # slimm_tpu's -d
+    indir = tmp_path / "in"
+    indir.mkdir()
+    for k in range(3):
+        _mix(str(indir), k)
+    _empty(str(indir))
+    db = str(tmp_path / "toy.sldb")
+    build_toy_db(toy_dir).save_sldb(db)
+    outs, alone_calls = {}, []
+    profile_file = tp.profile_file
+
+    def counted(*args, **kw):
+        alone_calls.append(args[2])
+        return profile_file(*args, **kw)
+
+    for tag, main, dev in (("jax", jax_main, []),
+                           ("torch", tcli.main, ["--device", "cpu"])):
+        out = str(tmp_path / tag) + "/"
+        if tag == "torch":
+            monkeypatch.setattr(tp, "profile_file", counted)
+            if limit is not None:
+                monkeypatch.setattr(tp, "GROUP_LIMIT", limit)
+        tp.reset_path_counts()
+        assert main(["profile", *dev, "-d", "-o", out, db, str(indir)]) == 0
+        outs[tag] = out
+    assert tp.path_counts["batched_groups"] == groups
+    assert len(alone_calls) == alone
+    names = sorted(os.listdir(outs["jax"]))
+    assert len(names) == 3 and names == sorted(os.listdir(outs["torch"]))
+    for name in names:
+        assert filecmp.cmp(outs["jax"] + name, outs["torch"] + name,
+                           shallow=False), name
+
+
+@pytest.mark.parametrize("limit,points", [
+    (None, ["tables", "cutoffs", "fetched"]),
+    (720, ["tables", "cutoffs", "fetched"] * 2)])
+def test_batched_host_marks_in_order(limit, points, toy_dir, tmp_path,
+                                     monkeypatch):
+    # the host clock at the batched path's fixed points, once per sub-group
+    # and per file; off (None) unless a caller sets a list
+    paths = GROUPS["mix3"](str(tmp_path)) + [_empty(str(tmp_path))]
+    db = to_port(build_toy_db(toy_dir))
+    eng = to_port(EngineOptions(phase_log=False, fetch_coverage=False))
+    if limit is not None:
+        monkeypatch.setattr(tp, "GROUP_LIMIT", limit)
+    assert tp.host_marks is None
+    monkeypatch.setattr(tp, "host_marks", [])
+    marks = tp.host_marks
+    tp.profile_files_batched(ProfileOptions(), db, paths, device=CPU,
+                             engine=eng)
+    assert [p for p, _ in marks] == (["decoded"] + points
+                                     + ["finalized"] * 3)
+    times = [t for _, t in marks]
+    assert times == sorted(times)
 
 
 # -- the entry points run on the card unless asked ---------------------------

@@ -28,7 +28,7 @@ from slimm_tpu_torch.engine.pipeline import profile_arrays, profile_file
 
 from tests import golden_adeno as GA
 from tests.test_engine import assert_states_equal
-from tests.test_torch_host import to_port
+from tests.test_torch_host import _raw_stream, to_port
 from tests.test_fuzz import gen_case
 from tests.toy import build_toy_dataset, build_toy_db, make_records, write_sam
 
@@ -226,6 +226,45 @@ def test_fuzz_cases_batched_match_oracle(tmp_path, toy_dir):
             assert st_t.hits_count == 0
             continue
         assert_states_equal(st_o, st_t)
+
+
+@pytest.mark.parametrize("seed", FUZZ_SEEDS)
+def test_fuzz_cases_match_native_baseline(seed, tmp_path, toy_dir):
+    # tests/test_fuzz.py's check_native_baseline over the port alone: the
+    # port's counters on each case equal the port's own single-core C++
+    # baseline (native.baseline_profile) on the raw mapped-record stream,
+    # read keys interned in order of first appearance
+    from slimm_tpu_torch.database import tensorize
+    from slimm_tpu_torch.io import AlignmentFile as TAlignmentFile
+    from slimm_tpu_torch.io import native
+
+    records, options = gen_case(np.random.default_rng(seed))
+    db = to_port(build_toy_db(toy_dir))
+    sam = write_sam(str(tmp_path), records, name=f"fuzz_{seed}.sam")
+    st = profile_file(to_port(options), copy.deepcopy(db), sam, device=CPU,
+                      engine=TEngineOptions(phase_log=False))
+    af = TAlignmentFile(sam)
+    raw, n_reads = _raw_stream(sam, TAlignmentFile)
+    if not len(raw):
+        assert st.hits_count == 0
+        return
+    oracle = toracle.OracleProfiler(
+        to_port(options), copy.deepcopy(db).ac__taxid,
+        copy.deepcopy(db).taxid__name,
+        list(zip(af.contig_names, af.contig_lengths.tolist())))
+    oracle.run(af.raw_records())
+    _, counters = native.baseline_profile(
+        raw[:, 0], raw[:, 1], raw[:, 2], n_reads, af.contig_lengths,
+        tensorize(copy.deepcopy(db), af.contig_names).lineage,
+        st.avg_read_length, bin_width=options.bin_width or st.avg_read_length,
+        cov_cut_off=options.cov_cut_off)
+    assert counters == dict(
+        hits=st.hits_count, matches=st.matches_count,
+        uniq_matches=st.uniq_matches_count,
+        uniq_matches2=st.uniq_matches_count2,
+        n_valid_refs=len(st.valid_ref_ids),
+        lca_total=sum(1 for t in oracle.reads.values() if len(t) > 1),
+        cov_mass=int(st.cov.sum()), uniq_cov2_mass=int(st.uniq_cov2.sum()))
 
 
 def test_deep_bin_counts_exact():
@@ -489,7 +528,9 @@ def test_port_sources_import_no_jax_or_engine():
                if f.endswith(".py")]
     assert len(sources) >= 20
     for module in ("misc_compat.py", "tools/preprocess.py", "cli.py",
-                   "engine/pipeline.py", "tables.py"):
+                   "engine/pipeline.py", "tables.py",
+                   "tools/profile_finalize.py", "io/native.py",
+                   "utils/workload.py", "parallel/multihost.py"):
         assert os.path.join(pkg, module) in sources, module
     for path in sources + [os.path.join(REPO, "chip_smoke.py")]:
         text = open(path).read()

@@ -293,3 +293,200 @@ def test_to_port_gives_the_ports_types(toy_dir):
         got = to_port(obj)
         assert type(got).__module__.startswith("slimm_tpu_torch.")
         assert dataclasses.asdict(got) == dataclasses.asdict(obj)
+
+
+# -- the rest of the native bindings ------------------------------------------
+
+
+def _raw_stream(path, alignment_file=JAlignmentFile):
+    """The raw mapped-record stream of a SAM/BAM, read keys interned in
+    order of first appearance (mate suffixes as the decoders add them):
+    what baseline_profile takes (tests/test_native.py:80-89).  Returns
+    (int32[n, 3] of read, contig, position; the number of reads)."""
+    key_to_id, raw = {}, []
+    for q, f, rid, pos, _ in alignment_file(path).raw_records():
+        if (f & 0x4) or rid < 0:
+            continue
+        k = q + ".1" if f & 0x40 else (q + ".2" if f & 0x80 else q)
+        raw.append((key_to_id.setdefault(k, len(key_to_id)), rid, pos))
+    return np.asarray(raw, np.int32).reshape(-1, 3), len(key_to_id)
+
+
+def _sldb_case(case, toy_dir, tmp_path):
+    """(input .sldb, expected ValueError text or None) of the cases of
+    tests/test_database.py:165-223."""
+    p = str(tmp_path / f"{case}.sldb")
+    if case == "toy":
+        build_toy_db(toy_dir).save_sldb(p)
+        return p
+    if case == "golden":
+        jdatabase.SlimmDatabase(
+            ac__taxid={"A1": [7, 0, 0, 0, 0, 0, 0, 2]},
+            taxid__name={7: (0, "x"), 2: (7, "Bacteria")}).save_sldb(p)
+        return p
+    jdatabase.SlimmDatabase(ac__taxid={"A1": [1] * 8},
+                            taxid__name={1: (0, "n")}).save_sldb(p)
+    raw = open(p, "rb").read()
+    with open(p, "wb") as f:
+        f.write(raw[:-5] if case == "truncated" else raw + b"zz")
+    return p
+
+
+@pytest.mark.parametrize("case", ["toy", "golden", "truncated", "trailing"])
+def test_sldb_roundtrip_equal(case, toy_dir, tmp_path):
+    src = _sldb_case(case, toy_dir, tmp_path)
+    got = {}
+    for tag, mod in (("jax", jnative), ("torch", tnative)):
+        out = str(tmp_path / f"{tag}.sldb")
+        try:
+            mod.sldb_roundtrip(src, out)
+            got[tag] = open(out, "rb").read()
+        except ValueError as e:
+            got[tag] = ("ValueError", str(e))
+    assert got["torch"] == got["jax"]
+    if case in ("toy", "golden"):
+        assert got["torch"] == open(src, "rb").read()
+    else:
+        assert ("truncated" if case == "truncated" else "trailing") in \
+            got["torch"][1]
+
+
+@pytest.mark.parametrize("case", ["toy", "duplicates"])
+def test_dedup_targets_equal(case, toy_dir):
+    if case == "toy":
+        raw, _ = _raw_stream(toy_dir.sam_path)
+    else:
+        rng = np.random.default_rng(3)
+        read = np.sort(rng.integers(0, 400, 3000))
+        raw = np.stack([read, rng.integers(0, 4, 3000),
+                        rng.integers(0, 5000, 3000)], 1).astype(np.int32)
+    (tr, tc, tpos), secs = tnative.dedup_targets(*raw.T)
+    (jr, jc, jpos), _ = jnative.dedup_targets(*raw.T)
+    assert secs >= 0 and len(tr) < len(raw)
+    for a, b in ((tr, jr), (tc, jc), (tpos, jpos)):
+        assert a.dtype == b.dtype == np.int32
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["toy", "bench_workload"])
+def test_baseline_profile_equal(case, toy_dir):
+    if case == "toy":
+        # tests/test_native.py:67-107: the raw stream of the toy SAM
+        raw, n_reads = _raw_stream(toy_dir.sam_path)
+        af = JAlignmentFile(toy_dir.sam_path)
+        lengths = af.contig_lengths
+        lineage = tdatabase.tensorize(to_port(build_toy_db(toy_dir)),
+                                      af.contig_names).lineage
+        avg = af.load().avg_read_length
+        args = (raw[:, 0], raw[:, 1], raw[:, 2], n_reads, lengths, lineage,
+                avg, avg)
+    else:
+        w = workload.make_workload(30_000, 9, seed=4)
+        args = (w["read_id"], w["rid"], w["pos"], w["n_reads"], w["lengths"],
+                w["lineage"], w["avg_read_len"], w["avg_read_len"])
+    for q in (0.95, 0.5):
+        t_secs, got = tnative.baseline_profile(*args, cov_cut_off=q)
+        _, want = jnative.baseline_profile(*args, cov_cut_off=q)
+        assert t_secs >= 0 and got == want
+        assert list(got) == ["hits", "matches", "uniq_matches",
+                             "uniq_matches2", "n_valid_refs", "lca_total",
+                             "cov_mass", "uniq_cov2_mass"]
+        assert got["hits"] == len(args[0]) and got["uniq_matches"] > 0
+
+
+def test_write_bench_bam_equals_bench(tmp_path):
+    # the BAM twin: bench.py's bytes, and the port's decoder reads the same
+    # records from it as from the SAM
+    w = workload.make_workload(20_000, 7, seed=3)
+    bams = {}
+    for tag, mod in (("jax", bench), ("torch", workload)):
+        bams[tag] = str(tmp_path / f"{tag}.bam")
+        assert mod.write_bench_bam(bams[tag], w, 7, block=4096) > 0
+    assert filecmp.cmp(bams["jax"], bams["torch"], shallow=False)
+    sam = str(tmp_path / "twin.sam")
+    workload.write_bench_sam(sam, w, 7)
+    from_bam = tnative.NativeAlignmentFile(bams["torch"])
+    from_sam = tnative.NativeAlignmentFile(sam)
+    _assert_batches_equal(from_sam.load(), from_bam.load())
+    assert from_bam.contig_names == from_sam.contig_names
+    np.testing.assert_array_equal(from_bam.contig_lengths,
+                                  from_sam.contig_lengths)
+
+
+# -- tools/profile_finalize: the port's copy of profile_finalize.py -----------
+
+
+def test_profile_finalize_equals_original(capsys, monkeypatch):
+    import re
+    import sys
+
+    import profile_finalize as jfinal
+    from slimm_tpu_torch.tools import profile_finalize as tfinal
+
+    n_contigs, n_lca = 400, 700
+    want_st = jfinal.build_synthetic(n_contigs, n_lca)
+    got_st = tfinal.build_synthetic(n_contigs, n_lca)
+    assert type(got_st).__module__ == "slimm_tpu_torch.state"
+    for name in ("accessions", "taxa_id", "lengths", "nbins", "bin_offset",
+                 "reads_count", "uniq_reads_count", "uniq_reads_count2",
+                 "ac__taxid", "taxid__name", "taxon_id__read_count",
+                 "taxon_id__children", "valid_ref_ids"):
+        a, b = getattr(want_st, name), getattr(got_st, name)
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        else:
+            assert a == b, name
+
+    # the printed lines, times masked: the original's three lines, and the
+    # port's two decode steps before its own
+    capsys.readouterr()
+    monkeypatch.setattr(sys, "argv", ["profile_finalize.py", str(n_contigs),
+                                      str(n_lca)])
+    jfinal.main()
+    want = capsys.readouterr().out
+    tfinal.main([str(n_contigs), str(n_lca)])
+    got = capsys.readouterr().out
+
+    def masked(text):
+        return re.sub(r"\d+\.\d+ s", "T s", text).splitlines()
+
+    assert [line for line in masked(got) if not line.startswith(
+        ("dense counts", "pair decode"))] == masked(want)
+    assert len(masked(got)) == len(masked(want)) + 2
+
+    # steps 1-2 give back the synthetic counts, and the children whose
+    # lineage holds their LCA
+    st = tfinal.build_synthetic(n_contigs, n_lca)
+    decoded, _ = tfinal.decode_tail(st)
+    assert decoded.taxon_id__read_count == st.taxon_id__read_count
+    on_lineage = {t: {c for c in ch if t in st.ac__taxid[st.accessions[c]]}
+                  for t, ch in st.taxon_id__children.items()}
+    assert decoded.taxon_id__children == on_lineage
+
+
+def test_profile_finalize_runs_as_a_module_without_jax():
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import runpy, sys; sys.modules['jax'] = None; "
+            "sys.modules['slimm_tpu'] = None; "
+            "sys.argv = ['profile_finalize', '60', '90']; "
+            "runpy.run_module('slimm_tpu_torch.tools.profile_finalize', "
+            "run_name='__main__')")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("contigs=60 lca_entries=90 ")
+    assert "abundance_rows all ranks:" in proc.stdout
+
+
+@pytest.mark.parametrize("hosts", [1, 2, 4, 16])
+def test_model_efficiency_equals_bench_scaling(hosts):
+    import bench_scaling
+    from slimm_tpu_torch.parallel.multihost import model_efficiency
+
+    for args in ((0.25, 3_353_292, 12.5e9, 0.01), (1e-3, 1e9, 1e9, 0.0)):
+        step, payload, link, rest = args
+        assert model_efficiency(step, payload, hosts, link, rest) == \
+            bench_scaling.model_efficiency(step, payload, hosts, link, rest)
