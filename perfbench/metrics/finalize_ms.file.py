@@ -1,0 +1,13 @@
+"""finalize_ms.file: the host tail after the fetch (`_finalize_state`: unpack,
+abundances, validity, LCA counts, children, propagation), summed over the
+traced window's `slimm.finalize` spans (the program's own, harness/spans.py)
+and taken over the window's files (`pipeline.work_counts["calls"]`), in ms.
+None where the program opens no such span."""
+
+from harness import spans
+
+
+def read(run):
+    if run.traffic["entry"] != "file":
+        return None
+    return spans.ms_per_call(run, "finalize")

@@ -39,13 +39,24 @@ shards over the bin axis, processes over torch.distributed), and
 files with one header (`profile_files_batched`, the CLI's `-d`) runs as one
 profile over tables that lay the files end to end
 (tables.group_tables); the cutoffs and the packing are per file.
+
+Under a running torch.profiler each request is a `slimm.profile` span (the
+outermost entry-point call) whose children, on the caller's thread, name
+its stages: `slimm.init` (per-call host state, the tables on the device),
+`slimm.decode_wait` (the host waiting on the decoder), `slimm.plan`,
+`slimm.upload`, `slimm.pass_a`, `slimm.cutoffs` (sums, the one sync, the
+host cutoffs), `slimm.pass_b` (with the packing), `slimm.fetch` and
+`slimm.finalize`; engine/reports.py adds `slimm.report` (utils/timer.py
+`span`).  `work_counts` counts what the calls did, always.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import os
 import queue
+import resource
 import sys
 import threading
 import time
@@ -58,7 +69,7 @@ import torch
 from ..config import EngineOptions, ProfileOptions
 from ..database import SlimmDatabase, tensorize
 from ..state import ProfileState, quantile_cut_off
-from ..utils.timer import PhaseTimer
+from ..utils.timer import PhaseTimer, span, work_counts
 
 from ..ops.hist import hist1, hist2
 from ..tables import DeviceTables, device_tables, group_tables
@@ -92,20 +103,52 @@ path_counts = dict.fromkeys((
 
 
 def reset_path_counts():
-    for key in path_counts:
-        path_counts[key] = 0
+    """Zero `path_counts` and `work_counts`."""
+    for counts in (path_counts, work_counts):
+        for key in counts:
+            counts[key] = type(counts[key])()
 
 
-# Host-clock marks of profile_files_batched, for a caller that splits its
-# time: None (off), or a list that gets (point, time.perf_counter()) where
-# the decode, a group's tables, its cutoff sync, its packed fetch and each
-# file's _finalize_state end
+# Host-clock marks for a caller that splits its time: None (off), or a list
+# that gets (point, time.perf_counter()).  "cutoffs", right after the
+# cutoffs' one host sync, fires in _core_after_a on every path, and a
+# benchmark splits each call there.  profile_files_batched adds "decoded",
+# "tables", "fetched" and "finalized" (chip_smoke.py's host_split reads
+# them).  Stages are spans (utils/timer.py `span`), never new marks.
 host_marks = None
 
 
 def _mark(point: str) -> None:
     if host_marks is not None:
         host_marks.append((point, time.perf_counter()))
+
+
+# The thread's outermost entry-point call, if one is running
+_in_request = threading.local()
+
+
+def _request(entry):
+    """An entry point whose outermost call, on its thread, is one request:
+    a `slimm.profile` span around it, and its call, minor page faults and
+    CPU seconds counted in work_counts (two getrusage calls).  A call that
+    another entry point makes is a part of that request, and opens none."""
+    @functools.wraps(entry)
+    def call(*args, **kwargs):
+        if getattr(_in_request, "on", False):
+            return entry(*args, **kwargs)
+        _in_request.on = True
+        r0 = resource.getrusage(resource.RUSAGE_SELF)
+        try:
+            with span("profile"):
+                return entry(*args, **kwargs)
+        finally:
+            r1 = resource.getrusage(resource.RUSAGE_SELF)
+            _in_request.on = False
+            work_counts["calls"] += 1
+            work_counts["minor_faults"] += r1.ru_minflt - r0.ru_minflt
+            work_counts["cpu_s"] += (r1.ru_utime + r1.ru_stime
+                                     - r0.ru_utime - r0.ru_stime)
+    return call
 
 
 # copied from slimm_tpu/engine/pipeline.py:82-94 (the v2 stream's piece cap)
@@ -278,6 +321,7 @@ def _cutoffs(rc, nzc, urc, nzu, t: DeviceTables):
     C = len(rc_h) // K
     valid = ((rc_h > 0) & (covp >= np.repeat(cc, C))
              & (ucovp >= np.repeat(ucc, C)))
+    work_counts["h2d_bytes"] += valid.nbytes
     return cc, ucc, torch.from_numpy(valid).to(rc.device)
 
 
@@ -474,10 +518,14 @@ class Grid:
         """Grouped host records of a whole file -> shards[d][m], int32
         tensors of data shard d on tables[d][m]'s device (routed on the
         home device)."""
-        arrays = tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32))
-                       .to(self.home) for a in (read_id, rid, pos))
-        return [self.place(d, part) for d, (part, _) in
-                enumerate(self.pieces("v1", arrays, len(arrays[0])))]
+        with span("upload"):
+            arrays = []
+            for a in (read_id, rid, pos):
+                a = np.ascontiguousarray(a, np.int32)
+                work_counts["h2d_bytes"] += a.nbytes
+                arrays.append(torch.from_numpy(a).to(self.home))
+            return [self.place(d, part) for d, (part, _) in
+                    enumerate(self.pieces("v1", arrays, len(arrays[0])))]
 
     def merge(self, parts, m=0):
         """Sum of the data shards' parts on model shard m's device (of data
@@ -524,9 +572,10 @@ def fused_profile_shards(grid: Grid, shards, *, dedup_window, k_steps,
     """fused_profile over a grid: shards[d][m] = (read_id, rid, pos) of data
     shard d on tables[d][m]'s device.  Pass A runs per (d, m) over model
     shard m's bins (pipeline.py:657-671); pass B per data shard."""
-    cov, uniq_cov, uniq_matches, pieces = _pass_a_shards(
-        grid, shards, dedup_window=dedup_window, k_steps=k_steps,
-        window=window)
+    with span("pass_a"):
+        cov, uniq_cov, uniq_matches, pieces = _pass_a_shards(
+            grid, shards, dedup_window=dedup_window, k_steps=k_steps,
+            window=window)
     return _core_after_a(grid, cov, uniq_cov, uniq_matches,
                          pieces.__getitem__, emit_coverage=emit_coverage)
 
@@ -565,42 +614,48 @@ def _core_after_a(grid: Grid, cov, uniq_cov, uniq_matches, pass_b_pieces, *,
     piece, or the streamed pieces one by one."""
     D, M = grid.D, grid.M
     t0 = grid.tables[0][0]
-    cov_m = [grid.merge([cov[d][m] for d in range(D)], m) for m in range(M)]
-    ucov_m = [grid.merge([uniq_cov[d][m] for d in range(D)], m)
-              for m in range(M)]
-    uniq_matches = grid.merge(uniq_matches)
-    # per-contig counters of the MERGED slices (occupancy does not commute
-    # with summation)
-    rc, nzc = _slice_sums(grid, cov_m)
-    urc, nzu = _slice_sums(grid, ucov_m)
-    cc, ucc, valid_mask = _cutoffs(rc, nzc, urc, nzu, t0)
+    with span("cutoffs"):
+        cov_m = [grid.merge([cov[d][m] for d in range(D)], m)
+                 for m in range(M)]
+        ucov_m = [grid.merge([uniq_cov[d][m] for d in range(D)], m)
+                  for m in range(M)]
+        uniq_matches = grid.merge(uniq_matches)
+        # per-contig counters of the MERGED slices (occupancy does not
+        # commute with summation)
+        rc, nzc = _slice_sums(grid, cov_m)
+        urc, nzu = _slice_sums(grid, ucov_m)
+        cc, ucc, valid_mask = _cutoffs(rc, nzc, urc, nzu, t0)
     _mark("cutoffs")
-    slices = grid.slices if M > 1 else None
-    accs = []
-    for d in range(D):
-        t = grid.tables[d][0]
-        acc = _pass_b_acc(t, emit_coverage, slices)
-        valid_d = valid_mask.to(t.device)
-        for read_id, rid, t_gbin, nondup, k_steps, window in pass_b_pieces(d):
-            _pass_b_chunk(acc, read_id, rid, t_gbin, nondup, valid_d, t,
-                          k_steps=k_steps, window=window,
-                          emit_coverage=emit_coverage, slices=slices)
-        accs.append(acc)
-    # bin-independent pass-B outputs come once per data shard: merged over
-    # the data shards only (pipeline.py:744-749)
-    if emit_coverage:
-        u2_m = [grid.merge([a["u2"][m] for a in accs], m) for m in range(M)]
-        u2 = _slice_sums(grid, u2_m)[0]
-    else:
-        u2 = grid.merge([a["u2"] for a in accs])
-    taxon = grid.merge([a["taxon"] for a in accs])
-    uniq_matches2 = grid.merge([a["um2"] for a in accs])
-    pair = grid.merge_any([a["pair"] for a in accs])
-    out = dict(packed=_pack(rc, urc, nzc, nzu, u2, valid_mask, uniq_matches,
-                            uniq_matches2, cc, ucc, taxon, pair, t0))
-    if emit_coverage:
-        out.update(cov=_concat(cov_m, t0), uniq_cov=_concat(ucov_m, t0),
-                   uniq_cov2=_concat(u2_m, t0))
+    with span("pass_b"):
+        slices = grid.slices if M > 1 else None
+        accs = []
+        for d in range(D):
+            t = grid.tables[d][0]
+            acc = _pass_b_acc(t, emit_coverage, slices)
+            valid_d = valid_mask.to(t.device)
+            for read_id, rid, t_gbin, nondup, k_steps, window in (
+                    pass_b_pieces(d)):
+                _pass_b_chunk(acc, read_id, rid, t_gbin, nondup, valid_d, t,
+                              k_steps=k_steps, window=window,
+                              emit_coverage=emit_coverage, slices=slices)
+            accs.append(acc)
+        # bin-independent pass-B outputs come once per data shard: merged
+        # over the data shards only (pipeline.py:744-749)
+        if emit_coverage:
+            u2_m = [grid.merge([a["u2"][m] for a in accs], m)
+                    for m in range(M)]
+            u2 = _slice_sums(grid, u2_m)[0]
+        else:
+            u2 = grid.merge([a["u2"] for a in accs])
+        taxon = grid.merge([a["taxon"] for a in accs])
+        uniq_matches2 = grid.merge([a["um2"] for a in accs])
+        pair = grid.merge_any([a["pair"] for a in accs])
+        out = dict(packed=_pack(rc, urc, nzc, nzu, u2, valid_mask,
+                                uniq_matches, uniq_matches2, cc, ucc, taxon,
+                                pair, t0))
+        if emit_coverage:
+            out.update(cov=_concat(cov_m, t0), uniq_cov=_concat(ucov_m, t0),
+                       uniq_cov2=_concat(u2_m, t0))
     return out
 
 
@@ -677,6 +732,7 @@ def _pack(rc, urc, nzc, nzu, u2, valid_mask, uniq_matches, uniq_matches2,
         rows[:, :cells] = pair_levels[:K * cells].view(K, cells)
         pair_levels = rows.view(-1)
     cuts = torch.from_numpy(np.stack([cc, ucc], 1).view(np.int32))
+    work_counts["h2d_bytes"] += cuts.nbytes
     scalars = torch.cat([torch.stack([uniq_matches, uniq_matches2], -1)
                          .view(K, 2), cuts.to(rc.device),
                          rc.new_zeros(K, _N_SCALARS - 4)], 1)
@@ -774,6 +830,7 @@ def plan_records(read_id, rid, pos, n_contigs, *, deduped=True,
 # ---------------------------------------------------------------------------
 
 
+@_request
 def profile_arrays(options: ProfileOptions, db: SlimmDatabase,
                    contig_names, contig_lengths,
                    read_id, rid, pos, n_reads: int, hits_count: int,
@@ -800,8 +857,9 @@ def profile_arrays(options: ProfileOptions, db: SlimmDatabase,
         options.bin_width = avg_read_length
 
     timer.start("Intializing coverages for all reference genome ... ")
-    st.init_contigs(contig_names, contig_lengths, options.bin_width)
-    dense = tensorize(db, contig_names)
+    with span("init"):
+        st.init_contigs(contig_names, contig_lengths, options.bin_width)
+        dense = tensorize(db, contig_names)
     timer.lap()
 
     st.hits_count = hits_count
@@ -811,9 +869,10 @@ def profile_arrays(options: ProfileOptions, db: SlimmDatabase,
     st.matches_count = n_reads
 
     timer.start("Analysing alignments, reads and references ....... ")
-    read_id, rid, pos, dedup_window, k_steps, window = plan_records(
-        read_id, rid, pos, len(st.accessions), deduped=deduped,
-        max_targets=max_targets)
+    with span("plan"):
+        read_id, rid, pos, dedup_window, k_steps, window = plan_records(
+            read_id, rid, pos, len(st.accessions), deduped=deduped,
+            max_targets=max_targets)
     plan = dict(dedup_window=dedup_window, k_steps=k_steps, window=window,
                 emit_coverage=engine.fetch_coverage)
     grid = _grid(device, sharded_runner,
@@ -843,10 +902,11 @@ def _grid(device, runner, make_tables) -> Grid:
     """The Grid of one profile: `device`'s alone, or `runner`'s grid
     (counted in path_counts["sharded_files"]); make_tables(device) builds
     the tables on a device."""
-    if runner is None:
-        return Grid.single(make_tables(device))
-    path_counts["sharded_files"] += 1
-    return runner.grid(make_tables)
+    with span("init"):
+        if runner is None:
+            return Grid.single(make_tables(device))
+        path_counts["sharded_files"] += 1
+        return runner.grid(make_tables)
 
 
 def _host(x) -> np.ndarray:
@@ -855,10 +915,18 @@ def _host(x) -> np.ndarray:
 
 def _finalize_state(st, out, dense, engine, options, timer):
     """Fill a ProfileState from the fused profile's outputs (pipeline.py
-    1167-1250, without the streamed pair-bits branch): tensors, or numpy
-    arrays already fetched (a file of the batched path)."""
+    1167-1250, without the streamed pair-bits branch): tensors, fetched
+    first, or numpy arrays already fetched (a file of the batched path)."""
+    with span("fetch"):
+        out = {key: _host(x) for key, x in out.items()}
+    with span("finalize"):
+        return _fill_state(st, out, dense, engine, options, timer)
+
+
+def _fill_state(st, out, dense, engine, options, timer):
+    """_finalize_state's work on the fetched outputs."""
     n_contigs = len(st.accessions)
-    packed_np = _host(out["packed"])
+    packed_np = out["packed"]
     stats = unpack_stats(packed_np, n_contigs, dense.n_dense)
     st.reads_count = stats["reads_count"].astype(np.int64)
     st.uniq_reads_count = stats["uniq_reads_count"].astype(np.int64)
@@ -867,8 +935,8 @@ def _finalize_state(st, out, dense, engine, options, timer):
     st.uniq_matches_count = stats["uniq_matches"]
     st.uniq_hits_count = st.uniq_matches_count  # identical by construction
     if engine.fetch_coverage:
-        st.cov = _host(out["cov"]).astype(np.uint32)
-        st.uniq_cov = _host(out["uniq_cov"]).astype(np.uint32)
+        st.cov = out["cov"].astype(np.uint32)
+        st.uniq_cov = out["uniq_cov"].astype(np.uint32)
     else:
         # drop the zero-filled placeholders so bin-level access without a
         # fetch fails loudly instead of reading silent zeros
@@ -891,7 +959,7 @@ def _finalize_state(st, out, dense, engine, options, timer):
     timer.start("Assigning reads to Least Common Ancestor (LCA) ... ")
     st.uniq_reads_count2 = stats["uniq_reads_count2"].astype(np.int64)
     if engine.fetch_coverage:
-        st.uniq_cov2 = _host(out["uniq_cov2"]).astype(np.uint32)
+        st.uniq_cov2 = out["uniq_cov2"].astype(np.uint32)
     st.uniq_matches_count2 = stats["uniq_matches2"]
 
     # dense LCA counts + children pairs -> taxid dicts
@@ -953,6 +1021,7 @@ def open_alignment_file(path: str, engine: EngineOptions | None = None):
     return AlignmentFile(path)
 
 
+@_request
 def profile_file(options: ProfileOptions, db: SlimmDatabase, path: str, *,
                  device=None, engine: EngineOptions | None = None,
                  sharded_runner=None) -> ProfileState:
@@ -977,8 +1046,9 @@ def profile_file(options: ProfileOptions, db: SlimmDatabase, path: str, *,
                                        engine=engine)
             if st is not None:
                 return st
-    af = open_alignment_file(path, engine)
-    batch = af.load()
+    with span("decode_wait"):
+        af = open_alignment_file(path, engine)
+        batch = af.load()
     n_reads, hits_count = batch.n_reads, batch.hits_count
     avg = batch.avg_read_length
     if sharded_runner is not None:
@@ -1041,6 +1111,7 @@ def _upload(arrays, device):
     for a in arrays:
         x = (a if isinstance(a, torch.Tensor)
              else torch.from_numpy(np.ascontiguousarray(a)))
+        work_counts["h2d_bytes"] += x.nbytes
         if device.type != "cpu":
             x = x.pin_memory().to(device, non_blocking=True)
         out.append(x)
@@ -1100,34 +1171,41 @@ def _pass_a_pieces(next_piece, grid: Grid, *, budget, counter):
                  uniq_matches=zeros(t, ())) for m, t in enumerate(row)]
            for row in grid.tables]
     kept = [[] for _ in range(grid.D)]
-    while (piece := next_piece()) is not None:
+    while True:
+        with span("decode_wait"):
+            piece = next_piece()
+        if piece is None:
+            break
         fmt, host, n, k_steps, window = piece
         if n == 0:
             continue
-        arrays = _upload(host, grid.home)
-        for d, (part, n_d) in enumerate(grid.pieces(fmt, arrays, n)):
-            if n_d == 0:
-                continue
-            nbytes = sum(a.nbytes for a in part)
-            on_device = budget is None or budget >= nbytes
-            if on_device and budget is not None:
-                budget -= nbytes
-            row = grid.place(d, part)
-            decoded = {}     # per distinct device of the row
-            for m, t in enumerate(grid.tables[d]):
-                if t.device not in decoded:
-                    decoded[t.device] = _DECODE[fmt](row[m], n_d, t)
-                read_id, rid, t_gbin = decoded[t.device]
-                piece_pass_a_acc(acc[d][m], read_id, rid, t_gbin, t,
-                                 k_steps=k_steps, window=window,
-                                 **grid.window(m))
-            if on_device:
-                keep = row[0]
-            elif grid.D == 1:
-                keep = host
-            else:
-                keep = tuple(a.to("cpu", non_blocking=True) for a in part)
-            kept[d].append((fmt, keep, on_device, n_d, k_steps, window))
+        with span("upload"):
+            arrays = _upload(host, grid.home)
+        with span("pass_a"):
+            for d, (part, n_d) in enumerate(grid.pieces(fmt, arrays, n)):
+                if n_d == 0:
+                    continue
+                nbytes = sum(a.nbytes for a in part)
+                on_device = budget is None or budget >= nbytes
+                if on_device and budget is not None:
+                    budget -= nbytes
+                row = grid.place(d, part)
+                decoded = {}     # per distinct device of the row
+                for m, t in enumerate(grid.tables[d]):
+                    if t.device not in decoded:
+                        decoded[t.device] = _DECODE[fmt](row[m], n_d, t)
+                    read_id, rid, t_gbin = decoded[t.device]
+                    piece_pass_a_acc(acc[d][m], read_id, rid, t_gbin, t,
+                                     k_steps=k_steps, window=window,
+                                     **grid.window(m))
+                if on_device:
+                    keep = row[0]
+                elif grid.D == 1:
+                    keep = host
+                else:
+                    keep = tuple(a.to("cpu", non_blocking=True)
+                                 for a in part)
+                kept[d].append((fmt, keep, on_device, n_d, k_steps, window))
         path_counts[counter] += 1
     return acc, kept
 
@@ -1186,8 +1264,10 @@ def _stream_init(options: ProfileOptions, db: SlimmDatabase, sr,
     st.avg_read_length = avg
     if options.bin_width == 0:
         options.bin_width = avg
-    st.init_contigs(sr.contig_names, sr.contig_lengths, options.bin_width)
-    dense = tensorize(db, sr.contig_names)
+    with span("init"):
+        st.init_contigs(sr.contig_names, sr.contig_lengths,
+                        options.bin_width)
+        dense = tensorize(db, sr.contig_names)
     total_bins = int(st.nbins.sum())
     geom = dict(
         n_contigs=len(st.accessions),
@@ -1255,8 +1335,9 @@ def _profile_file_overlap(options: ProfileOptions, db: SlimmDatabase,
     if not native.available():
         return give_way("no_native")
     try:
-        sr = native.NativeStreamReader(path,
-                                       hash_names=engine.hash_read_names)
+        with span("decode_wait"):
+            sr = native.NativeStreamReader(path,
+                                           hash_names=engine.hash_read_names)
     except ValueError:
         return give_way("open")
     bw0 = options.bin_width
@@ -1279,7 +1360,8 @@ def _profile_file_overlap(options: ProfileOptions, db: SlimmDatabase,
             est_targets = 0
         cap = max(cap, -(-est_targets // 56))
     n_s = -(-cap // 2048) * 2048
-    grid = Grid.single(device_tables(st, dense, options, device))
+    with span("init"):
+        grid = Grid.single(device_tables(st, dense, options, device))
 
     try:
         acc, kept = _pass_a_pieces(_v2_pieces(sr, n_s, geom), grid,
@@ -1328,6 +1410,7 @@ def _decode_ahead(sr, chunk_targets):
     return next_chunk, th
 
 
+@_request
 def profile_file_streaming(options: ProfileOptions, db: SlimmDatabase,
                            path: str, *, device=None,
                            engine: EngineOptions | None = None,
@@ -1366,8 +1449,9 @@ def profile_file_streaming(options: ProfileOptions, db: SlimmDatabase,
     if not native.available():
         return give_way("no_native")
     try:
-        sr = native.NativeStreamReader(path,
-                                       hash_names=engine.hash_read_names)
+        with span("decode_wait"):
+            sr = native.NativeStreamReader(path,
+                                           hash_names=engine.hash_read_names)
     except ValueError:
         return give_way("open")
 
@@ -1457,6 +1541,7 @@ def plan_subgroups(sizes) -> list:
     return runs
 
 
+@_request
 def profile_files_batched(options: ProfileOptions, db: SlimmDatabase,
                           paths: list, *, device=None,
                           engine: EngineOptions | None = None) -> list:
@@ -1471,9 +1556,10 @@ def profile_files_batched(options: ProfileOptions, db: SlimmDatabase,
     device = _device(device, None)
     engine = engine or EngineOptions()
     decoded = []
-    for path in paths:
-        af = open_alignment_file(path, engine)
-        decoded.append((path, af, af.load()))
+    with span("decode_wait"):
+        for path in paths:
+            af = open_alignment_file(path, engine)
+            decoded.append((path, af, af.load()))
     _mark("decoded")
     names0 = list(decoded[0][1].contig_names)
     lengths0 = np.asarray(decoded[0][1].contig_lengths)
@@ -1491,22 +1577,23 @@ def profile_files_batched(options: ProfileOptions, db: SlimmDatabase,
 
     timer = PhaseTimer(enabled=engine.phase_log)
     timer.start("Intializing coverages for all reference genome ... ")
-    dense = tensorize(db, names0)
-    preps, empties = [], []
-    for path, af, batch in decoded:
-        opts_k = copy.deepcopy(options)
-        st = ProfileState(options=opts_k, ac__taxid=db.ac__taxid,
-                          taxid__name=db.taxid__name)
-        st.avg_read_length = batch.avg_read_length
-        if opts_k.bin_width == 0:
-            opts_k.bin_width = batch.avg_read_length
-        st.init_contigs(names0, lengths0, opts_k.bin_width)
-        st.hits_count = batch.hits_count
-        st.matches_count = batch.n_reads
-        if batch.hits_count == 0:
-            empties.append((path, st))
-        else:
-            preps.append((path, st, opts_k, batch))
+    with span("init"):
+        dense = tensorize(db, names0)
+        preps, empties = [], []
+        for path, af, batch in decoded:
+            opts_k = copy.deepcopy(options)
+            st = ProfileState(options=opts_k, ac__taxid=db.ac__taxid,
+                              taxid__name=db.taxid__name)
+            st.avg_read_length = batch.avg_read_length
+            if opts_k.bin_width == 0:
+                opts_k.bin_width = batch.avg_read_length
+            st.init_contigs(names0, lengths0, opts_k.bin_width)
+            st.hits_count = batch.hits_count
+            st.matches_count = batch.n_reads
+            if batch.hits_count == 0:
+                empties.append((path, st))
+            else:
+                preps.append((path, st, opts_k, batch))
     # from here each decoded batch is held in preps alone (a native file
     # holds its decoded records too, until it is let go)
     del decoded, af, batch
@@ -1515,8 +1602,10 @@ def profile_files_batched(options: ProfileOptions, db: SlimmDatabase,
     results, grouped = {}, []
     if preps:
         timer.start("Analysing alignments, reads and references ....... ")
-        sizes = [_group_size(st, b) for _, st, _, b in preps]
-        for run in plan_subgroups(sizes):
+        with span("plan"):
+            sizes = [_group_size(st, b) for _, st, _, b in preps]
+            runs = plan_subgroups(sizes)
+        for run in runs:
             if max(sizes[run[0]]) > GROUP_LIMIT:
                 # alone past the limit: as one file is profiled, which
                 # decodes it again, so its first decode is let go before
@@ -1554,33 +1643,37 @@ def _profile_group(preps, dense, device, engine) -> list:
     states = [st for _, st, _, _ in preps]
     batches = [b for _, _, _, b in preps]
     C = len(dense.lineage)
-    # the decoder's batches are deduped and grouped by read; one segment
-    # plan, the longest read's, serves the group (pipeline.py:1937-1945)
-    k_steps, window = plan_from_max_run(max(
-        b.max_targets or seg_plan(b.read_id)[0] for b in batches))
-    # each file's read ids after the earlier files'
-    sums = np.sum([_group_size(st, b) for st, b in zip(states, batches)],
-                  axis=0, dtype=np.int64)
-    if len(preps) > 1 and sums.max() > GROUP_LIMIT:
-        raise OverflowError(f"(reads, bins, records) of a group of files "
-                            f"{tuple(sums.tolist())} pass GROUP_LIMIT: "
-                            "plan_subgroups cuts such a group first")
-    reads = np.array([int(b.read_id.max()) + 1 for b in batches])
-    read_id = np.concatenate([b.read_id + r for b, r in
-                              zip(batches, np.cumsum(reads) - reads)])
-    rid = np.concatenate([np.asarray(b.rid) + k * C
-                          for k, b in enumerate(batches)])
-    pos = np.concatenate([b.pos for b in batches])
-    grid = Grid.single(group_tables(
-        states, [opts for _, _, opts, _ in preps], dense, device))
+    with span("plan"):
+        # the decoder's batches are deduped and grouped by read; one
+        # segment plan, the longest read's, serves the group
+        # (pipeline.py:1937-1945)
+        k_steps, window = plan_from_max_run(max(
+            b.max_targets or seg_plan(b.read_id)[0] for b in batches))
+        # each file's read ids after the earlier files'
+        sums = np.sum([_group_size(st, b) for st, b in zip(states, batches)],
+                      axis=0, dtype=np.int64)
+        if len(preps) > 1 and sums.max() > GROUP_LIMIT:
+            raise OverflowError(f"(reads, bins, records) of a group of files "
+                                f"{tuple(sums.tolist())} pass GROUP_LIMIT: "
+                                "plan_subgroups cuts such a group first")
+        reads = np.array([int(b.read_id.max()) + 1 for b in batches])
+        read_id = np.concatenate([b.read_id + r for b, r in
+                                  zip(batches, np.cumsum(reads) - reads)])
+        rid = np.concatenate([np.asarray(b.rid) + k * C
+                              for k, b in enumerate(batches)])
+        pos = np.concatenate([b.pos for b in batches])
+    with span("init"):
+        grid = Grid.single(group_tables(
+            states, [opts for _, _, opts, _ in preps], dense, device))
     _mark("tables")
     out = fused_profile_shards(grid, grid.shards(read_id, rid, pos),
                                dedup_window=0, k_steps=k_steps,
                                window=window,
                                emit_coverage=engine.fetch_coverage)
-    packed = out["packed"].cpu().numpy().reshape(len(preps), -1)
-    hists = {key: out[key].cpu().numpy() for key in
-             ("cov", "uniq_cov", "uniq_cov2") if engine.fetch_coverage}
+    with span("fetch"):
+        packed = out["packed"].cpu().numpy().reshape(len(preps), -1)
+        hists = {key: out[key].cpu().numpy() for key in
+                 ("cov", "uniq_cov", "uniq_cov2") if engine.fetch_coverage}
     outs, lo = [], 0
     for k, st in enumerate(states):
         hi = lo + int(st.nbins.sum())

@@ -14,6 +14,7 @@ import sys
 
 from ..io.files import tsv_file_name
 from ..state import ProfileState
+from ..utils.timer import span
 
 
 def _open_out(path: str):
@@ -37,7 +38,7 @@ RAW_HEADER = (
 def write_abundance(state: ProfileState, output_prefix: str,
                     input_path: str) -> str:
     path = tsv_file_name(output_prefix, input_path, "_profile")
-    with _open_out(path) as f:
+    with span("report"), _open_out(path) as f:
         f.write(PROFILE_HEADER)
         for row in state.abundance_rows():
             f.write("\t".join(row) + "\n")
@@ -57,7 +58,7 @@ def write_abundance(state: ProfileState, output_prefix: str,
 def write_raw_stat(state: ProfileState, output_prefix: str,
                    input_path: str) -> str:
     path = tsv_file_name(output_prefix, input_path, "_raw")
-    with _open_out(path) as f:
+    with span("report"), _open_out(path) as f:
         f.write(RAW_HEADER)
         for row in state.raw_rows():
             f.write("\t".join(row) + "\n")
@@ -68,8 +69,9 @@ def write_coverage(state: ProfileState, output_prefix: str,
                    input_path: str) -> list[str]:
     paths = [tsv_file_name(output_prefix, input_path, suffix)
              for suffix in ("_coverage", "_uniq_coverage", "_uniq_coverage2")]
-    for path, rows in zip(paths, state.coverage_rows()):
-        with _open_out(path) as f:
-            for row in rows:
-                f.write(row + "\n")
+    with span("report"):
+        for path, rows in zip(paths, state.coverage_rows()):
+            with _open_out(path) as f:
+                for row in rows:
+                    f.write(row + "\n")
     return paths

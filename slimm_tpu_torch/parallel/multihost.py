@@ -30,9 +30,7 @@ collective.  Splitting one file by read across the launcher's processes is
 not done here (the library entry points above do it).
 
 `MultiHostRunner.collective_bytes` counts the payload of every collective
-the runner issued, and `model_efficiency` is the time model over
-hosts that the bench's scaling study uses; it takes a link rate, which is
-not measured for the card's links yet.
+the runner issued.
 """
 
 from __future__ import annotations
@@ -42,6 +40,7 @@ import os
 import torch
 import torch.distributed as dist
 
+from ..utils.timer import work_counts
 from .runner import ShardedRunner
 
 
@@ -82,18 +81,6 @@ def shard_paths(paths: list, rank: int | None = None,
     return [p for i, p in enumerate(paths) if i % world_size == rank]
 
 
-def model_efficiency(step_secs, payload_bytes, hosts, link_bw,
-                     replicated_secs):
-    """Ring all-reduce over `hosts` links: 2*(H-1)/H * payload per link.
-    Copied from bench_scaling.py:119-126: the time model only, no link
-    rate."""
-    t1 = step_secs + replicated_secs
-    th = (step_secs / hosts
-          + 2 * (hosts - 1) / hosts * payload_bytes / link_bw
-          + replicated_secs)
-    return t1 / (hosts * th)
-
-
 class MultiHostRunner(ShardedRunner):
     """`sharded_runner` spanning every process of the initialized group.
 
@@ -126,6 +113,7 @@ class MultiHostRunner(ShardedRunner):
         if not self.distributed:
             return value
         x = torch.tensor([value], dtype=torch.int64, device=self._dev)
+        work_counts["h2d_bytes"] += x.nbytes
         self.collective_bytes["broadcast"].append(x.numel()
                                                   * x.element_size())
         dist.broadcast(x, src=0)
@@ -136,6 +124,7 @@ class MultiHostRunner(ShardedRunner):
         if not self.distributed:
             return values
         x = torch.tensor(values, dtype=torch.int64, device=self._dev)
+        work_counts["h2d_bytes"] += x.nbytes
         self._all_reduce(x)
         return tuple(int(v) for v in x.tolist())
 

@@ -13,6 +13,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .utils.timer import work_counts
+
 # index of the lowest set bit of an 8-bit mask, 7 for the empty mask: the
 # first lineage level on which all of a read's targets agree (pass B's LCA)
 _FIRST_LEVEL = np.array([7] + [(z & -z).bit_length() - 1 for z in range(1, 256)],
@@ -66,7 +68,9 @@ class DeviceTables:
         bin_ends = _as_int32(bin_ends, "bin_ends")
 
         def dev(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+            a = np.ascontiguousarray(a, dtype)
+            work_counts["h2d_bytes"] += a.nbytes
+            return torch.from_numpy(a).to(device)
 
         def per_contig(x):
             return dev(x, np.int64) if np.ndim(x) else int(x)

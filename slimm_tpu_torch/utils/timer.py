@@ -1,11 +1,36 @@
-# Copied from slimm_tpu/utils/timer.py (the port imports nothing of slimm_tpu).
+# Timer and PhaseTimer copied from slimm_tpu/utils/timer.py (the port
+# imports nothing of slimm_tpu).
 """Phase stopwatch with the reference's stderr log shape
-(src/timer.hpp:13-48, used at slimm.hpp:446-494)."""
+(src/timer.hpp:13-48, used at slimm.hpp:446-494), and the program's spans
+and work counters for a trace."""
 
 from __future__ import annotations
 
 import sys
 import time
+
+from torch._C._profiler import _RecordFunctionFast
+
+# What the profiles did, always counted, never reset here (engine.pipeline
+# holds the same dict as `work_counts`; its reset_path_counts zeroes it):
+# outermost entry-point calls, bytes of every host-to-device copy the
+# program issues (counted where the copy is issued, on any device), and the
+# process's minor page faults and CPU seconds (user + system, every
+# thread, the native decoder's included) across the outermost calls.
+work_counts = {"calls": 0, "h2d_bytes": 0, "minor_faults": 0, "cpu_s": 0.0}
+
+
+def span(stage: str):
+    """A context manager: a `slimm.<stage>` range on the host's timeline of
+    a running torch.profiler (an operator's --trace-dir, a benchmark's
+    window), beside the device's kernels and copies; with no profiler
+    running it records nothing (under a microsecond).
+
+    The range has function scope.  `torch.profiler.record_function` opens
+    a user-scope range, which also puts a copy of itself on the device's
+    timeline around the kernels it encloses; that copy would count as
+    device work in a trace's busy time."""
+    return _RecordFunctionFast("slimm." + stage)
 
 
 class Timer:

@@ -479,14 +479,3 @@ def test_profile_finalize_runs_as_a_module_without_jax():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("contigs=60 lca_entries=90 ")
     assert "abundance_rows all ranks:" in proc.stdout
-
-
-@pytest.mark.parametrize("hosts", [1, 2, 4, 16])
-def test_model_efficiency_equals_bench_scaling(hosts):
-    import bench_scaling
-    from slimm_tpu_torch.parallel.multihost import model_efficiency
-
-    for args in ((0.25, 3_353_292, 12.5e9, 0.01), (1e-3, 1e9, 1e9, 0.0)):
-        step, payload, link, rest = args
-        assert model_efficiency(step, payload, hosts, link, rest) == \
-            bench_scaling.model_efficiency(step, payload, hosts, link, rest)
