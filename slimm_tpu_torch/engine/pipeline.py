@@ -43,8 +43,9 @@ profile over tables that lay the files end to end
 Under a running torch.profiler each request is a `slimm.profile` span (the
 outermost entry-point call) whose children, on the caller's thread, name
 its stages: `slimm.init` (per-call host state, the tables on the device),
-`slimm.decode_wait` (the host waiting on the decoder), `slimm.plan`,
-`slimm.upload`, `slimm.pass_a`, `slimm.cutoffs` (sums, the one sync, the
+`slimm.decode_wait` (the host waiting on the decoder), `slimm.upload`,
+`slimm.plan` (of a whole file: on the device, after the upload),
+`slimm.pass_a`, `slimm.cutoffs` (sums, the one sync, the
 host cutoffs), `slimm.pass_b` (with the packing), `slimm.fetch` and
 `slimm.finalize`; engine/reports.py adds `slimm.report` (utils/timer.py
 `span`).  `work_counts` counts what the calls did, always.
@@ -514,18 +515,34 @@ class Grid:
                                      for a in part)
         return [on[t.device] for t in self.tables[d]]
 
-    def shards(self, read_id, rid, pos) -> list:
-        """Grouped host records of a whole file -> shards[d][m], int32
-        tensors of data shard d on tables[d][m]'s device (routed on the
-        home device)."""
+    def upload(self, read_id, rid, pos) -> tuple:
+        """Host records of a whole file -> (read_id, rid, pos), int32
+        tensors on the home device, each copied once."""
         with span("upload"):
-            arrays = []
+            records = []
             for a in (read_id, rid, pos):
                 a = np.ascontiguousarray(a, np.int32)
                 work_counts["h2d_bytes"] += a.nbytes
-                arrays.append(torch.from_numpy(a).to(self.home))
+                records.append(torch.from_numpy(a).to(self.home))
+            return tuple(records)
+
+    def route(self, records) -> list:
+        """A whole file's grouped record tensors on the home device ->
+        shards[d][m], the tensors of data shard d on tables[d][m]'s device.
+        Where the grid is more than the home device, the routing over the
+        data shards and the copies to the model shards' devices are an
+        `upload` span of their own."""
+        if self.split is None and all(t.device == self.home
+                                      for t in self.tables[0]):
+            return [[records] * self.M]
+        with span("upload"):
             return [self.place(d, part) for d, (part, _) in
-                    enumerate(self.pieces("v1", arrays, len(arrays[0])))]
+                    enumerate(self.pieces("v1", records, len(records[0])))]
+
+    def shards(self, read_id, rid, pos) -> list:
+        """Grouped host records of a whole file -> shards[d][m] (upload,
+        then route)."""
+        return self.route(self.upload(read_id, rid, pos))
 
     def merge(self, parts, m=0):
         """Sum of the data shards' parts on model shard m's device (of data
@@ -825,6 +842,61 @@ def plan_records(read_id, rid, pos, n_contigs, *, deduped=True,
     return read_id, rid, pos, dedup_window, k_steps, window
 
 
+def _max_run(read_id) -> tuple:
+    """(sorted, max_run) of int32 read ids on their device: whether every id
+    is at most the next, and for sorted ids the longest run of equal ids
+    (1 for none or one id), as seg_plan counts it.  One host read of
+    MAX_WINDOW + 2 flags: sortedness, and for k = 1..MAX_WINDOW + 1 whether
+    some id equals the one k places on, which in sorted ids is a run longer
+    than k.  A run past MAX_WINDOW + 1 is counted exactly by a scan and a
+    second read."""
+    flags = [(read_id[:-1] <= read_id[1:]).all()]
+    flags += [(read_id[k:] == read_id[:-k]).any()
+              for k in range(1, MAX_WINDOW + 2)]
+    ordered, *longer = torch.stack(flags).tolist()
+    if not ordered:
+        return False, 0
+    if not longer[-1]:
+        return True, 1 + sum(longer)
+    runs = torch.unique_consecutive(read_id, return_counts=True)[1]
+    return True, int(runs.max())
+
+
+def plan_uploaded(grid: Grid, records, host, n_contigs, *, deduped=True,
+                  max_targets=0):
+    """plan_records' plan of a whole file's records, taken from their upload
+    (`Grid.upload`) on the home device: (records, dedup_window, k_steps,
+    window), the records grouped by read, as plan_records gives them for
+    the host arrays `host` = (read_id, rid, pos).
+
+    The decoder's max_targets plans deduped records.  Otherwise one host
+    read gives the sortedness and the longest run (_max_run); unsorted
+    records are sorted there first (torch's stable sort, the permutation of
+    numpy's stable argsort) and read again.  Only raw records whose longest
+    run passes MAX_WINDOW + 1 go to the host: plan_records' first-hit dedup
+    rewrites `host`, and its output is uploaded.  work_counts counts the
+    plans that took the uploaded records (`device_plans`) and those taken
+    on the host (`host_plans`)."""
+    if max_targets > 0 and deduped:
+        max_run = max_targets
+    else:
+        ordered, max_run = _max_run(records[0])
+        if not ordered:
+            read_id, order = torch.sort(records[0], stable=True)
+            records = (read_id, records[1][order], records[2][order])
+            del order
+            _, max_run = _max_run(read_id)
+        if not deduped and max_run - 1 > MAX_WINDOW:
+            work_counts["host_plans"] += 1
+            *host, dedup_window, k_steps, window = plan_records(
+                *host, n_contigs, deduped=False)
+            return grid.upload(*host), dedup_window, k_steps, window
+    work_counts["device_plans"] += 1
+    k_steps, window = plan_from_max_run(max_run)
+    dedup_window = 0 if deduped else max(1, max_run - 1)
+    return records, dedup_window, k_steps, window
+
+
 # ---------------------------------------------------------------------------
 # host orchestration (pipeline.py:1035-1296)
 # ---------------------------------------------------------------------------
@@ -869,15 +941,16 @@ def profile_arrays(options: ProfileOptions, db: SlimmDatabase,
     st.matches_count = n_reads
 
     timer.start("Analysing alignments, reads and references ....... ")
-    with span("plan"):
-        read_id, rid, pos, dedup_window, k_steps, window = plan_records(
-            read_id, rid, pos, len(st.accessions), deduped=deduped,
-            max_targets=max_targets)
-    plan = dict(dedup_window=dedup_window, k_steps=k_steps, window=window,
-                emit_coverage=engine.fetch_coverage)
     grid = _grid(device, sharded_runner,
                  lambda dev: device_tables(st, dense, options, dev))
-    out = fused_profile_shards(grid, grid.shards(read_id, rid, pos), **plan)
+    records = grid.upload(read_id, rid, pos)
+    with span("plan"):
+        records, dedup_window, k_steps, window = plan_uploaded(
+            grid, records, (read_id, rid, pos), len(st.accessions),
+            deduped=deduped, max_targets=max_targets)
+    plan = dict(dedup_window=dedup_window, k_steps=k_steps, window=window,
+                emit_coverage=engine.fetch_coverage)
+    out = fused_profile_shards(grid, grid.route(records), **plan)
     _finalize_state(st, out, dense, engine, options, timer)
     return st
 

@@ -14,10 +14,14 @@ from torch._C._profiler import _RecordFunctionFast
 # What the profiles did, always counted, never reset here (engine.pipeline
 # holds the same dict as `work_counts`; its reset_path_counts zeroes it):
 # outermost entry-point calls, bytes of every host-to-device copy the
-# program issues (counted where the copy is issued, on any device), and the
+# program issues (counted where the copy is issued, on any device), the
 # process's minor page faults and CPU seconds (user + system, every
-# thread, the native decoder's included) across the outermost calls.
-work_counts = {"calls": 0, "h2d_bytes": 0, "minor_faults": 0, "cpu_s": 0.0}
+# thread, the native decoder's included) across the outermost calls, and
+# the whole-file plans of profile_arrays taken from the uploaded records
+# or the decoder's max_targets (`device_plans`) and those taken on the host
+# (`host_plans`, engine/pipeline.py plan_uploaded).
+work_counts = {"calls": 0, "h2d_bytes": 0, "minor_faults": 0, "cpu_s": 0.0,
+               "device_plans": 0, "host_plans": 0}
 
 
 def span(stage: str):

@@ -39,7 +39,7 @@ PATH_KEYS = {
     "pass_b_reuploads", "sharded_files", "batched_groups",
     "batched_fallback_per_file"}
 
-CORE = "upload pass_a cutoffs pass_b fetch finalize"
+CORE = "upload plan pass_a cutoffs pass_b fetch finalize"
 PIECES = ("(decode_wait upload pass_a )+decode_wait cutoffs pass_b fetch "
           "finalize")
 
@@ -100,15 +100,15 @@ def _header(toy):
 ENTRIES = {
     "arrays_raw": (
         lambda toy: [_arrays(toy, deduped=False)],
-        f"init plan init {CORE}", ["cutoffs"]),
+        f"init init {CORE}", ["cutoffs"]),
     "arrays_deduped": (
         lambda toy: [_arrays(toy, deduped=True)],
-        f"init plan init {CORE}", ["cutoffs"]),
+        f"init init {CORE}", ["cutoffs"]),
     "file_whole": (
         lambda toy: [tp.profile_file(ProfileOptions(), toy["db"], toy["sam"],
                                      device=CPU,
                                      engine=_eng(overlap_min_bytes=0))],
-        f"decode_wait init plan init {CORE}", ["cutoffs"]),
+        f"decode_wait init init {CORE}", ["cutoffs"]),
     "file_overlap": (
         lambda toy: [tp.profile_file(
             ProfileOptions(), toy["db"], toy["sam"], device=CPU,
@@ -130,7 +130,7 @@ ENTRIES = {
         lambda toy: [st for _, st in tp.profile_files_batched(
             ProfileOptions(), toy["db"], toy["mixed"], device=CPU,
             engine=_eng(overlap_min_bytes=0))],
-        f"decode_wait( decode_wait init plan init {CORE}){{2}}",
+        f"decode_wait( decode_wait init init {CORE}){{2}}",
         ["decoded", "cutoffs", "cutoffs"]),
 }
 
@@ -264,5 +264,6 @@ def test_reset_path_counts_zeroes_both_dicts(toy):
     tp.reset_path_counts()
     assert not any(tp.path_counts.values())
     assert tp.work_counts == {"calls": 0, "h2d_bytes": 0, "minor_faults": 0,
-                              "cpu_s": 0.0}
+                              "cpu_s": 0.0, "device_plans": 0,
+                              "host_plans": 0}
     assert set(tp.path_counts) == PATH_KEYS
