@@ -15,10 +15,15 @@ Phases, each timed; any failure raises and the script exits non-zero:
            the pair index; and pass B's -ro/-co index), and uniform indices
            at the profile's bin domains (among them a model shard's slice of
            the bins, most records outside it), each at full size and cut to
-           a 2^18-record piece, the overlap path's piece: bit-equal; the
-           kernel, the plain version and one PyTorch call computing the same
-           histogram (index_add_, the library yardstick) timed, beside the
-           least time the card could take (bytes at 3.35 TB/s)
+           a 2^18-record piece, the overlap path's piece; and pass A at the
+           full-RefSeq database's size (perfbench/configs/refseq50k.json:
+           20M records over 1,333,360,000 bins, past 2^30, hits up to the
+           domain's last bin), full size only: bit-equal, one launch a call;
+           the kernel, the plain version and one PyTorch call computing the
+           same histogram (index_add_, the library yardstick) timed, beside
+           the least time the card could take (bytes at 3.35 TB/s); last,
+           hist2 over 2^31 - 1 bins, the most the wrapper takes, held to the
+           records' own (bin, count) pairs (not timed)
   core     fused_profile (emit_coverage=False, the default CLI path) on the
            bench workloads, 8M records x 50 contigs and 10M x 1000, on cuda
            and on cpu: the packed stats vectors must be equal; then the
@@ -132,6 +137,11 @@ DIR_RECORDS = 100_000
 DIR_REPS = 3
 BAM_REPS = 3
 BASELINE_REPS = 5               # the C++ baseline of the cores (bench.py)
+# pass A of the full-RefSeq database (perfbench/configs/refseq50k.json): its
+# bins, the sum over 50,000 genomes of length // 150 + 1, and a sample's
+# records
+WIDE_BINS = 1_333_360_000
+WIDE_RECORDS = 20_000_000
 
 # kernel launches of the path runs (not of the kernel comparisons), summed
 # over the phases: each run resets the counts before it and adds them after
@@ -291,7 +301,12 @@ def kernel_case(torch, hist, batch_time, name, kernel, idx, w1, w2, n_bins):
         run_k = lambda: (hist.hist1(idx, w1, n_bins),)  # noqa: E731
         run_p = lambda: (hist.hist1_plain(idx, w1, n_bins),)  # noqa: E731
     run_l = library_call(torch, kernel, idx, w1, w2, n_bins)
-    got, want, lib = run_k(), run_p(), run_l()
+    before = hist.hist1_launches + hist.hist2_launches
+    got = run_k()
+    launches = hist.hist1_launches + hist.hist2_launches - before
+    require(launches == int(idx.numel() > 0 and n_bins > 0),
+            f"{name}: {kernel} took {launches} launches")
+    want, lib = run_p(), run_l()
     torch.cuda.synchronize()
     err = max(int((g.long() - p.long()).abs().max()) for g, p in
               zip(got, want))
@@ -304,7 +319,7 @@ def kernel_case(torch, hist, batch_time, name, kernel, idx, w1, w2, n_bins):
     row = dict(case=name, kernel=kernel, n=n, n_bins=n_bins,
                kept=int((w1 & (idx >= 0) & (idx < n_bins)).sum()),
                variant=hist.VARIANT_NAMES[plan.variant], blocks=plan.blocks,
-               max_abs_err=err, ms=batch_time(run_k) * 1e3,
+               launches=launches, max_abs_err=err, ms=batch_time(run_k) * 1e3,
                plain_ms=batch_time(run_p) * 1e3,
                library_ms=batch_time(run_l) * 1e3, bytes=nbytes,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
@@ -320,8 +335,8 @@ def kernel_case(torch, hist, batch_time, name, kernel, idx, w1, w2, n_bins):
 def kernel_phase(torch, np, pipeline, hist, batch_time, device):
     """Each kernel against its plain version and the library call, on the
     main path's real inputs and on uniform indices at the profile's
-    domains, at full size and cut to an overlap-path piece; one row per
-    case."""
+    domains, at full size and cut to an overlap-path piece, then pass A at
+    the full-RefSeq database's size; one row per case."""
     from slimm_tpu_torch.parallel.runner import model_slices
 
     a50, b50, p50 = geometry(50, 0)
@@ -329,14 +344,14 @@ def kernel_phase(torch, np, pipeline, hist, batch_time, device):
     real = capture_main_path(torch, np, pipeline, device)
     rng = np.random.default_rng(1)
 
-    def uniform(n_bins, density):
-        idx = rng.integers(0, n_bins, RECORDS).astype(np.int32)
+    def uniform(n_bins, density, n=RECORDS):
+        idx = rng.integers(0, n_bins, n).astype(np.int32)
         idx[:70_000] = n_bins // 3              # one bin with 70,000 hits
-        oor = rng.choice(RECORDS, 2_000, replace=False)
+        oor = rng.choice(n, 2_000, replace=False)
         idx[oor] = np.where(np.arange(2_000) % 2 == 0, -1 - oor % 100,
                             n_bins + oor % 100)  # dropped, weight or not
-        w1 = rng.random(RECORDS) < density
-        w2 = rng.random(RECORDS) < 0.85 * density
+        w1 = rng.random(n) < density
+        w2 = rng.random(n) < 0.85 * density
         return [torch.from_numpy(a).to(device) for a in (idx, w1, w2)]
 
     def model_shard(kernel, idx, w1, w2, n_bins, shards):
@@ -376,7 +391,54 @@ def kernel_phase(torch, np, pipeline, hist, batch_time, device):
                                                  "_piece"), kernel,
                 idx[cut].contiguous(), w1[cut].contiguous(),
                 None if w2 is None else w2[cut].contiguous(), n_bins))
+    del cases, real, pa
+
+    # pass A over the full-RefSeq domain: the grid-stride index of the
+    # split passes int32 here; a hot bin past 2^30, the domain's last 1,000
+    # bins hit, records on the int32 maximum dropped
+    idx, w1, w2 = uniform(WIDE_BINS, 0.9, WIDE_RECORDS)
+    idx[80_000:150_000] = WIDE_BINS - 2
+    idx[150_000:160_000] = WIDE_BINS - 1 - torch.arange(
+        10_000, dtype=torch.int32, device=idx.device) % 1_000
+    idx[160_000:160_100] = 2**31 - 1
+    require(int(idx.max()) == 2**31 - 1 and WIDE_BINS > 2**30,
+            "the wide case's index")
+    rows.append(kernel_case(torch, hist, batch_time, "passA_refseq50k",
+                            "hist2", idx, w1, w2, WIDE_BINS))
+    del idx, w1, w2
+    torch.cuda.empty_cache()
+    int32_edge_case(torch, hist, device)
     return rows
+
+
+def int32_edge_case(torch, hist, device):
+    """hist2 over the largest domain the wrapper takes, 2^31 - 1 bins, with
+    hits on its last bins: the split's block count passes int32 there.
+    Checked against the records' own (bin, count) pairs, since the plain
+    version's int64 counts of the whole domain would not fit beside the
+    kernel's outputs: equal counts at every hit bin and equal totals, so
+    zeros elsewhere (counts are never negative)."""
+    n, n_bins = 1 << 20, 2**31 - 1
+    gen = torch.Generator().manual_seed(3)
+    idx = torch.randint(0, n_bins, (n,), generator=gen, dtype=torch.int32)
+    idx[:1_000] = n_bins - 1 - torch.arange(1_000, dtype=torch.int32) % 10
+    idx[1_000:1_100] = -1
+    w1 = torch.rand(n, generator=gen) < 0.9
+    w2 = torch.rand(n, generator=gen) < 0.8
+    idx, w1, w2 = (t.to(device) for t in (idx, w1, w2))
+    before = hist.hist2_launches
+    got = hist.hist2(idx, w1, w2, n_bins)
+    require(hist.hist2_launches - before == 1, "int32_max: hist2 launches")
+    for out, w in zip(got, (w1, w2)):
+        bins, counts = torch.unique(idx[w & (idx >= 0)].long(),
+                                    return_counts=True)
+        require(torch.equal(out[bins].long(), counts)
+                and int(out.sum(dtype=torch.int64)) == int(counts.sum()),
+                "int32_max: hist2 != the records' counts")
+    log(f"  {'hist2_int32_max':28s} hist2 n={n:>8d} bins={n_bins} equal, "
+        f"last bin {int(got[0][-1])} / {int(got[1][-1])}")
+    del got
+    torch.cuda.empty_cache()
 
 
 def core_phase(torch, np, pipeline, cuda_time, hist, device):

@@ -175,13 +175,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// out1[i] = low half of acc[i], out2[i] = high half.
+// out1[i] = low half of acc[i], out2[i] = high half.  The index is 64-bit:
+// past 2^30 bins, i + stride would pass int32.
 __global__ void __launch_bounds__(kThreads)
     split_packed(const u64* __restrict__ acc, int32_t n_bins,
                  int32_t* __restrict__ out1,
                  int32_t* __restrict__ out2) {
-  const int stride = gridDim.x * blockDim.x;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_bins; i += stride) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n_bins; i += stride) {
     const u64 c = acc[i];
     out1[i] = static_cast<int32_t>(c & 0xffffffffu);
     out2[i] = static_cast<int32_t>(c >> 32);
@@ -304,7 +306,9 @@ int slimm_hist2(const int32_t* idx, const uint8_t* w1, const uint8_t* w2,
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int split_blocks = (n_bins + kThreads - 1) / kThreads;
+  // in 64 bits: n_bins + kThreads - 1 passes int32 near 2^31 bins
+  const int split_blocks = static_cast<int>(
+      (static_cast<int64_t>(n_bins) + kThreads - 1) / kThreads);
   split_packed<<<split_blocks, kThreads, 0, stream>>>(acc, n_bins, out1, out2);
   return static_cast<int>(cudaGetLastError());
 }

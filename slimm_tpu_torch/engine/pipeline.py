@@ -47,8 +47,10 @@ its stages: `slimm.init` (per-call host state, the tables on the device),
 `slimm.plan` (of a whole file: on the device, after the upload),
 `slimm.pass_a`, `slimm.cutoffs` (sums, the one sync, the
 host cutoffs), `slimm.pass_b` (with the packing), `slimm.fetch` and
-`slimm.finalize`; engine/reports.py adds `slimm.report` (utils/timer.py
-`span`).  `work_counts` counts what the calls did, always.
+`slimm.finalize`, which holds `slimm.pairs` (the children sets from the
+pair presence) and `slimm.propagate` (the ancestor propagation);
+engine/reports.py adds `slimm.report` (utils/timer.py `span`).
+`work_counts` counts what the calls did, always.
 """
 
 from __future__ import annotations
@@ -1037,9 +1039,11 @@ def _fill_state(st, out, dense, engine, options, timer):
 
     # dense LCA counts + children pairs -> taxid dicts
     taxon_counts_into(st, stats["taxon_counts"], dense)
-    pairs_into(st, packed_np[6 * n_contigs + _N_SCALARS + dense.n_dense:],
-               dense)
-    st.propagate_counts()
+    with span("pairs"):
+        pairs_into(st, packed_np[6 * n_contigs + _N_SCALARS + dense.n_dense:],
+                   dense)
+    with span("propagate"):
+        st.propagate_counts()
     timer.lap()
     return st
 

@@ -22,6 +22,7 @@ import numpy as np
 
 from .config import ProfileOptions
 from .taxonomy import LINEAGE_LENGTH, considered_ranks, rank_name, rank_short
+from .utils.timer import work_counts
 
 f32 = np.float32
 
@@ -262,10 +263,16 @@ class ProfileState:
 
         Pass 2: each contig's uniq_reads_count2 is added to every ancestor
         (levels 1..7) of that contig's lineage.
+
+        work_counts counts which of the two ran, the C++ or the loop,
+        and the LCA taxa it started from.
         """
+        work_counts["lca_taxa"] += len(self.taxon_id__read_count)
         if (len(self.taxon_id__read_count) >= self.NATIVE_PROPAGATE_MIN
                 and self._propagate_native()):
+            work_counts["native_propagations"] += 1
             return
+        work_counts["python_propagations"] += 1
         snapshot = dict(self.taxon_id__read_count)
         for t_id in sorted(snapshot):
             count = snapshot[t_id]

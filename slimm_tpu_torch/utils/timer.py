@@ -19,9 +19,13 @@ from torch._C._profiler import _RecordFunctionFast
 # thread, the native decoder's included) across the outermost calls, and
 # the whole-file plans of profile_arrays taken from the uploaded records
 # or the decoder's max_targets (`device_plans`) and those taken on the host
-# (`host_plans`, engine/pipeline.py plan_uploaded).
+# (`host_plans`, engine/pipeline.py plan_uploaded), and the ancestor
+# propagations (state.py propagate_counts) that ran in C++
+# (`native_propagations`) or in Python (`python_propagations`), with the LCA
+# taxa they started from (`lca_taxa`, summed over them).
 work_counts = {"calls": 0, "h2d_bytes": 0, "minor_faults": 0, "cpu_s": 0.0,
-               "device_plans": 0, "host_plans": 0}
+               "device_plans": 0, "host_plans": 0, "native_propagations": 0,
+               "python_propagations": 0, "lca_taxa": 0}
 
 
 def span(stage: str):

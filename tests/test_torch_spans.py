@@ -265,5 +265,36 @@ def test_reset_path_counts_zeroes_both_dicts(toy):
     assert not any(tp.path_counts.values())
     assert tp.work_counts == {"calls": 0, "h2d_bytes": 0, "minor_faults": 0,
                               "cpu_s": 0.0, "device_plans": 0,
-                              "host_plans": 0}
+                              "host_plans": 0, "native_propagations": 0,
+                              "python_propagations": 0, "lca_taxa": 0}
     assert set(tp.path_counts) == PATH_KEYS
+
+
+@pytest.mark.parametrize("entry", list(ENTRIES))
+def test_pairs_and_propagate_nest_once_in_each_finalize(toy, entry):
+    """`slimm.pairs`, then `slimm.propagate`, once inside every
+    `slimm.finalize`: a file's finalize holds both, and neither stands
+    outside one."""
+    states, events = _traced(lambda: ENTRIES[entry][0](toy))
+    ours = [e for e in events if e[0].startswith("slimm.")]
+    finalizes = [e for e in ours if e[0] == "slimm.finalize"]
+    assert len(finalizes) == len(states) >= 1
+    for f in finalizes:
+        inner = [e[0] for e in ours if _inside(e, f)]
+        assert inner == ["slimm.pairs", "slimm.propagate"], inner
+    nested = [e for e in ours if e[0] in ("slimm.pairs", "slimm.propagate")]
+    assert len(nested) == 2 * len(finalizes)
+
+
+@pytest.mark.parametrize("entry", list(ENTRIES))
+def test_propagations_are_counted_by_path(toy, entry):
+    """One propagation a profiled file, in Python below
+    NATIVE_PROPAGATE_MIN LCA taxa (the toy's few), with the taxa summed."""
+    states = ENTRIES[entry][0](toy)
+    assert tp.work_counts["python_propagations"] == len(states)
+    assert tp.work_counts["native_propagations"] == 0
+    assert 0 < tp.work_counts["lca_taxa"] < (
+        len(states) * states[0].NATIVE_PROPAGATE_MIN)
+    tp.reset_path_counts()
+    assert tp.work_counts["python_propagations"] == 0
+    assert tp.work_counts["lca_taxa"] == 0
