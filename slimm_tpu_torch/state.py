@@ -22,7 +22,7 @@ import numpy as np
 
 from .config import ProfileOptions
 from .taxonomy import LINEAGE_LENGTH, considered_ranks, rank_name, rank_short
-from .utils.timer import work_counts
+from .utils.timer import span, work_counts
 
 f32 = np.float32
 
@@ -46,23 +46,30 @@ def quantile_cut_off(values, q) -> np.float32:
     total accumulates in the *original push order* before sorting; the walk
     descends from the top until cumulative/total >= q and returns the element
     below the stop index.  A zero total yields NaN ratios whose comparison
-    with q is false, so the loop never runs and the max element is returned.
-    """
-    vals = np.asarray(values, np.float32)
-    if vals.size == 0:
-        return f32(0.0)
-    total = seq_sum_f32(vals)
-    vals = np.sort(vals)
-    sub_total = f32(0.0)
-    i = vals.size - 1
-    while i > 0:
+    with q is false, so the walk stops at once and the max element is
+    returned.
+
+    The reference's scalar loop, vectorised with the same float32 bits:
+    step k (0 <= k <= n-2) compares q with the float32 sum of the k largest
+    values over total.  Those sums are the exclusive prefix of the
+    descending values under np.cumsum's in-order float32 accumulation (not
+    pairwise np.sum, not float64).  The first step whose ratio is not below
+    q returns desc[k]; with no stop the walk ends at the smallest value."""
+    with span("quantile"):
+        vals = np.asarray(values, np.float32)
+        work_counts["quantile_walks"] += 1
+        work_counts["quantile_values"] += vals.size
+        if vals.size == 0:
+            return f32(0.0)
+        total = seq_sum_f32(vals)
+        desc = np.sort(vals)[::-1]
+        sub_total = np.empty(desc.size, np.float32)
+        sub_total[0] = 0.0
+        np.cumsum(desc[:-1], dtype=np.float32, out=sub_total[1:])
         with np.errstate(invalid="ignore", divide="ignore"):
-            ratio = f32(sub_total / total)
-        if not (ratio < q):  # NaN-safe: NaN < q is False
-            break
-        sub_total = f32(sub_total + vals[i])
-        i -= 1
-    return f32(vals[i])
+            stop = ~(sub_total[:-1] / total < q)  # NaN-safe: NaN < q is False
+        k = int(stop.argmax()) if stop.any() else desc.size - 1
+        return f32(desc[k])
 
 
 @dataclass

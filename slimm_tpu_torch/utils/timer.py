@@ -22,10 +22,13 @@ from torch._C._profiler import _RecordFunctionFast
 # (`host_plans`, engine/pipeline.py plan_uploaded), and the ancestor
 # propagations (state.py propagate_counts) that ran in C++
 # (`native_propagations`) or in Python (`python_propagations`), with the LCA
-# taxa they started from (`lca_taxa`, summed over them).
+# taxa they started from (`lca_taxa`, summed over them), and the
+# coverage-quantile walks (state.py quantile_cut_off, `quantile_walks`) with
+# the values they walked (`quantile_values`, summed over them).
 work_counts = {"calls": 0, "h2d_bytes": 0, "minor_faults": 0, "cpu_s": 0.0,
                "device_plans": 0, "host_plans": 0, "native_propagations": 0,
-               "python_propagations": 0, "lca_taxa": 0}
+               "python_propagations": 0, "lca_taxa": 0, "quantile_walks": 0,
+               "quantile_values": 0}
 
 
 def span(stage: str):

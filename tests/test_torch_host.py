@@ -103,16 +103,51 @@ def test_tensorize_equal(toy_dir):
     assert dbs["torch"].ac__taxid == dbs["jax"].ac__taxid
 
 
-@pytest.mark.parametrize("q", [0.0, 0.5, 0.95, 1.0])
-@pytest.mark.parametrize("case", ["random", "zeros", "ties", "empty"])
+def _coverage_fractions(rng, n_contigs, n_reads):
+    """float32 nonzero/bins per contig, as `cov_percent` gives them, for
+    contigs of 2-6 Mbp in 150 bp bins with log-normal(1, 2) read counts
+    (the benchmark's refseq deployments): each contig's reads fall on its
+    bins uniformly, so past the first read's bin its nonzero bins are a
+    binomial draw."""
+    nbins = rng.integers(2_000_000, 6_000_001, n_contigs) // 150 + 1
+    weights = rng.lognormal(1.0, 2.0, n_contigs)
+    reads = np.maximum(1, np.round(n_reads * weights / weights.sum()))
+    nonzero = 1 + rng.binomial(nbins - 1, -np.expm1(-(reads - 1) / nbins))
+    return nonzero.astype(np.float32) / nbins.astype(np.float32)
+
+
+QUANTILE_CASES = {
+    "random": lambda rng: rng.gamma(0.5, 3.0, 997).astype(np.float32),
+    "zeros": lambda rng: np.zeros(40, np.float32),
+    "ties": lambda rng: rng.integers(0, 4, 300).astype(np.float32),
+    "empty": lambda rng: np.zeros(0, np.float32),
+    "refseq50k": lambda rng: _coverage_fractions(rng, 50_000, 17_400_000),
+    "refseq1k": lambda rng: _coverage_fractions(rng, 1_000, 8_700_000),
+    # runs of equal values across the stop at q = 0.5 and 0.95
+    "ties_at_stop": lambda rng: rng.permutation(np.repeat(
+        np.float32([1.0, 0.5, 0.1]), [3, 100, 5])),
+    # prefix sums 40, 70, 90, 95 of 100: the float32 ratio equals q's
+    # float32 rounding at q = 0.95 and 0.5 lies between two steps
+    "exact_stop": lambda rng: rng.permutation(
+        np.float32([40, 30, 20, 5, 3, 2]) / np.float32(64)),
+    "one": lambda rng: np.float32([0.3]),
+    "two": lambda rng: np.float32([0.2, 0.7]),
+}
+QS = (0.0, 0.5, 0.95, 1.0)
+
+
+@pytest.mark.parametrize("q", [pytest.param(np.float32(q), id=str(q))
+                               for q in QS]
+                         + [pytest.param(q, id=f"py{q}") for q in QS])
+@pytest.mark.parametrize("case", list(QUANTILE_CASES))
 def test_quantile_cut_off_equal(case, q):
-    rng = np.random.default_rng(int(100 * q) + 7 * len(case))
-    values = {"random": rng.gamma(0.5, 3.0, 997).astype(np.float32),
-              "zeros": np.zeros(40, np.float32),
-              "ties": rng.integers(0, 4, 300).astype(np.float32),
-              "empty": np.zeros(0, np.float32)}[case]
-    got = tstate.quantile_cut_off(values, np.float32(q))
-    want = jstate.quantile_cut_off(values, np.float32(q))
+    """The port's vectorised walk gives the scalar walk's float32 bits,
+    for q as np.float32 (the engine's `_cutoffs`) and as a Python float
+    (`ProfileState`'s options)."""
+    rng = np.random.default_rng(int(100 * round(float(q), 2)) + 7 * len(case))
+    values = QUANTILE_CASES[case](rng)
+    got = tstate.quantile_cut_off(values, q)
+    want = jstate.quantile_cut_off(values, q)
     assert got.dtype == want.dtype == np.float32
     assert got.tobytes() == want.tobytes()
     assert tstate.fmt_float(got) == jstate.fmt_float(want)

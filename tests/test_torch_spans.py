@@ -266,14 +266,16 @@ def test_reset_path_counts_zeroes_both_dicts(toy):
     assert tp.work_counts == {"calls": 0, "h2d_bytes": 0, "minor_faults": 0,
                               "cpu_s": 0.0, "device_plans": 0,
                               "host_plans": 0, "native_propagations": 0,
-                              "python_propagations": 0, "lca_taxa": 0}
+                              "python_propagations": 0, "lca_taxa": 0,
+                              "quantile_walks": 0, "quantile_values": 0}
     assert set(tp.path_counts) == PATH_KEYS
 
 
 @pytest.mark.parametrize("entry", list(ENTRIES))
 def test_pairs_and_propagate_nest_once_in_each_finalize(toy, entry):
     """`slimm.pairs`, then `slimm.propagate`, once inside every
-    `slimm.finalize`: a file's finalize holds both, and neither stands
+    `slimm.finalize`, after the two coverage-quantile walks of
+    `compute_valid_refs`: a file's finalize holds both, and neither stands
     outside one."""
     states, events = _traced(lambda: ENTRIES[entry][0](toy))
     ours = [e for e in events if e[0].startswith("slimm.")]
@@ -281,7 +283,8 @@ def test_pairs_and_propagate_nest_once_in_each_finalize(toy, entry):
     assert len(finalizes) == len(states) >= 1
     for f in finalizes:
         inner = [e[0] for e in ours if _inside(e, f)]
-        assert inner == ["slimm.pairs", "slimm.propagate"], inner
+        assert inner == ["slimm.quantile", "slimm.quantile", "slimm.pairs",
+                         "slimm.propagate"], inner
     nested = [e for e in ours if e[0] in ("slimm.pairs", "slimm.propagate")]
     assert len(nested) == 2 * len(finalizes)
 
@@ -298,3 +301,41 @@ def test_propagations_are_counted_by_path(toy, entry):
     tp.reset_path_counts()
     assert tp.work_counts["python_propagations"] == 0
     assert tp.work_counts["lca_taxa"] == 0
+
+
+@pytest.mark.parametrize("entry", list(ENTRIES))
+def test_quantile_walks_nest_in_cutoffs_and_finalize(toy, entry):
+    """Each `slimm.quantile` lies right under a `slimm.cutoffs` (two for
+    each file the cutoffs cover: cc and ucc) or a `slimm.finalize` (two in
+    each, `compute_valid_refs`), and nowhere else."""
+    states, events = _traced(lambda: ENTRIES[entry][0](toy))
+    ours = [e for e in events if e[0].startswith("slimm.")]
+    walks = [e for e in ours if e[0] == "slimm.quantile"]
+    parents = []
+    for w in walks:
+        around = [o for o in ours if _inside(w, o)]
+        parents.append(min(around, key=lambda o: o[2] - o[1])[0])
+    assert set(parents) == {"slimm.cutoffs", "slimm.finalize"}, parents
+    assert parents.count("slimm.finalize") == 2 * len(states)
+    assert parents.count("slimm.cutoffs") == 2 * len(states)
+    for f in (e for e in ours if e[0] == "slimm.finalize"):
+        assert sum(_inside(w, f) for w in walks) == 2
+    cutoffs = [sum(_inside(w, c) for w in walks)
+               for c in ours if c[0] == "slimm.cutoffs"]
+    assert cutoffs == ([2 * len(states)] if entry == "batched"
+                       else [2] * len(states)), cutoffs
+
+
+@pytest.mark.parametrize("entry", list(ENTRIES))
+def test_quantile_walks_are_counted(toy, entry):
+    """Four walks a profiled file (cc and ucc in the cutoffs, again in its
+    finalize), each over the file's contigs with unique reads; a batched
+    group's cutoffs walk each of its files."""
+    states = ENTRIES[entry][0](toy)
+    active = sum(int((st.uniq_reads_count > 0).sum()) for st in states)
+    assert active > 0
+    assert tp.work_counts["quantile_walks"] == 4 * len(states)
+    assert tp.work_counts["quantile_values"] == 4 * active
+    tp.reset_path_counts()
+    assert tp.work_counts["quantile_walks"] == 0
+    assert tp.work_counts["quantile_values"] == 0
