@@ -76,10 +76,7 @@ Phases, each timed; any failure raises and the script exits non-zero:
            each run read; seconds of both ways, median of 3 after a warm
            run, in turns, beside a decode-only floor.  The histogram
            inputs of one group of 8 are captured and each kernel held
-           against its plain version on them.  One more run of each way
-           splits its host time per file into decode, tables, pass A to the
-           cutoff sync, pass B and the fetch, _finalize_state and TSV
-           writes, read at the pipeline's fixed points (host_marks)
+           against its plain version on them
   trace    `profile --trace-dir` on the 1M-record SAM: the TSV equal to the
            untraced run's, and the Chrome trace names both kernels'
            __global__ functions (torch.profiler sees the kernels launched
@@ -1104,46 +1101,6 @@ def quiet_cli(cli, argv):
                            f"{err.getvalue()[-3000:]}")
 
 
-# the parts of a -d run's host time, by the pipeline's mark (host_marks)
-# that ends each, and the TSV writes that follow a group
-SPLIT_PARTS = {"decoded": "decode",
-               "tables": "group prep, tables built and uploaded",
-               "cutoffs": "records up, pass A, sums, cutoff sync",
-               "fetched": "pass B, packing, packed fetch",
-               "finalized": "_finalize_state", "written": "TSV writes"}
-
-
-def host_split(pipeline, db_path, paths, per_group, out_dir):
-    """`paths` profiled as the CLI's -d does on one device (sorted by size,
-    profile_files_batched per group of `per_group`, each abundance TSV
-    written), with the host clock read at the pipeline's fixed points
-    (pipeline.host_marks) and after each group's writes.  Returns the
-    seconds of each part of SPLIT_PARTS, summed over the groups."""
-    from slimm_tpu_torch.config import EngineOptions, ProfileOptions
-    from slimm_tpu_torch.database import SlimmDatabase
-    from slimm_tpu_torch.engine.reports import write_abundance
-
-    db = SlimmDatabase.load(db_path)
-    by_size = sorted(paths, key=os.path.getsize)
-    pipeline.host_marks = marks = []
-    try:
-        for i in range(0, len(by_size), per_group):
-            marks.append(("start", time.perf_counter()))
-            for path, st in pipeline.profile_files_batched(
-                    ProfileOptions(), db, by_size[i:i + per_group],
-                    engine=EngineOptions(fetch_coverage=False,
-                                         phase_log=False)):
-                write_abundance(st, out_dir + "/", path)
-            marks.append(("written", time.perf_counter()))
-    finally:
-        pipeline.host_marks = None
-    parts = dict.fromkeys(SPLIT_PARTS.values(), 0.0)
-    for (_, t_prev), (point, t) in zip(marks, marks[1:]):
-        if point != "start":
-            parts[SPLIT_PARTS[point]] += t - t_prev
-    return parts
-
-
 def dir_phase(torch, np, pipeline, hist, batch_time, tmp, bench_files, smi):
     """`profile -d` on 16 SAMs of one header, batched (groups of
     files_per_dispatch) and as a per-file loop (files_per_dispatch=1),
@@ -1238,27 +1195,8 @@ def dir_phase(torch, np, pipeline, hist, batch_time, tmp, bench_files, smi):
     log(f"  -d decode-only floor (open_alignment_file(path).load() of each "
         f"file): {' / '.join(f'{x:.3f}' for x in floor)} s")
 
-    # where a small file's host time goes: one more run of each way with
-    # the host clock read at the pipeline's fixed points
-    paths = [os.path.join(indir, name) for name in names]
-    split = {}
-    for way, per in (("batched", per_group), ("per_file", 1)):
-        out = os.path.join(d, way + "_split")
-        c0 = time.perf_counter()
-        split[way] = host_split(pipeline, db_path, paths, per, out)
-        split[way]["all of the run"] = time.perf_counter() - c0
-        for name in names:
-            tsv = name[:-len(".sam")] + "_profile.tsv"
-            require(open(os.path.join(out, tsv), "rb").read()
-                    == open(os.path.join(d, "batched", tsv), "rb").read(),
-                    f"-d split run {way}: {tsv} differs from the CLI's")
-    log(f"  -d host time per file, ms (batched / per file), one run of "
-        f"{len(names)} files each, TSVs equal to the CLI's:")
-    for part in split["batched"]:
-        log(f"    {part:44s} {split['batched'][part] / len(names) * 1e3:8.3f}"
-            f" / {split['per_file'][part] / len(names) * 1e3:8.3f}")
-
     # the kernels on the histogram inputs of one group
+    paths = [os.path.join(indir, name) for name in names]
     with recorded_hists(pipeline) as calls:
         pipeline.profile_files_batched(
             ProfileOptions(), SlimmDatabase.load(db_path), paths[:per_group],

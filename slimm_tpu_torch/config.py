@@ -4,8 +4,8 @@
 One dataclass per CLI surface, mirroring the reference option names and
 defaults exactly (profiler: src/slimm.cpp:60-180 + slimm.hpp:75-86;
 builder: src/slimm_build.cpp:54-114).  No config files / env vars in the
-reference; we add optional TPU-execution knobs in EngineOptions which do not
-change results (integer-exact merges make shard count invisible).
+reference; EngineOptions holds the port's execution settings, which do not
+change results.
 """
 
 from __future__ import annotations
@@ -49,40 +49,41 @@ class BuildOptions:
 
 @dataclass
 class EngineOptions:
-    """TPU execution knobs (no reference analogue; results are invariant)."""
+    """How the port runs a profile (no reference analogue; results are
+    invariant).  The grid of devices is the caller's: `--shards` builds a
+    ShardedRunner (slimm_tpu_torch.parallel)."""
 
-    # Data-parallel shards over the read axis; None → all local devices.
-    num_shards: int | None = None
-    # Pad record batches to multiples of this (static shapes for jit).
+    # Quantum of the streamed path's piece cap: chunk targets are rounded
+    # up from it in 1.25x steps (engine.pipeline._bucket).
     batch_pad: int = 8192
-    # Use the native C++ decoder when available.
+    # Decode with the native C++ decoder (built at first use; a failed
+    # build raises); False takes the pure-Python reference decoder.
     use_native: bool = True
     # Fetch the full coverage histograms to the host (needed for -ro/-co
     # reports and oracle-parity checks; the hot path only needs the small
     # per-contig stats).
     fetch_coverage: bool = True
     # Directory mode: files profiled as one (engine.pipeline.
-    # profile_files_batched: one pass per group; amortizes the per-file
-    # launches and syncs).
+    # profile_files_batched: one profile per group of files with one
+    # header, so one launch per histogram and one cutoff sync a group).
     files_per_dispatch: int = 8
-    # Whole-file mode: overlap decode with the host->device record upload
-    # for files at least this large (bytes) by streaming fixed-size v2
-    # pieces to the device during decode and fusing them in ONE dispatch.
-    # 0 disables the overlap path.
+    # Whole-file mode: files at least this large (bytes) take the overlap
+    # path, pass A on each v2 piece on the device while the decoder goes
+    # on with the rest; 0 turns it off.
     overlap_min_bytes: int = 64 << 20
     # Targets per uploaded piece in the overlap path (multiple of 2048).
-    # At the default value the engine auto-scales it UP on large files so
-    # the final dispatch stays under ~64 pieces; any explicit value is
-    # honored exactly.
+    # At the default value it is scaled UP on large files so that a file
+    # makes at most ~56 pieces; any explicit value is used exactly.
     overlap_piece_targets: int = 262144
-    # Chunk-streaming decode+profile: targets per device chunk (0 = off,
-    # whole-file single dispatch).  Bounds device memory for files whose
-    # record arrays exceed HBM and overlaps decode with dispatch; requires
-    # qname-grouped input (falls back to whole-file otherwise).
+    # Chunk-streaming decode+profile (profile_file_streaming): targets per
+    # piece (0 = off, the whole-file path).  Bounds device memory for
+    # files whose records exceed it, and overlaps decode with pass A;
+    # falls back to the whole-file path where the input stops being
+    # qname-grouped partway.
     stream_chunk: int = 0
-    # Streaming: keep uploaded chunk arrays device-resident up to this many
-    # bytes so pass B skips the host->device re-transfer; chunks past the
-    # budget re-upload from host copies (device memory stays bounded).
+    # Streaming: keep uploaded pieces on the device up to this many bytes
+    # so pass B skips the host->device copy; pieces past the budget are
+    # uploaded again from host copies (device memory stays bounded).
     stream_device_cache_bytes: int = 2 << 30
     # Billion-read scale mode: intern read keys as 64-bit hashes instead of
     # storing the name arena (~12 B/read vs ~40+).  Distinct names that

@@ -91,15 +91,16 @@ V2_MAX_BIN = int(np.iinfo(np.uint16).max)
 
 # Which paths ran: files and pieces of the overlap path, why it gave way to
 # the whole-file path, files and chunks (v2, v1) of chunk streaming and why
-# it gave way, pieces that pass B uploaded again from host copies, files
-# profiled through a sharded runner (slimm_tpu_torch.parallel), and groups
-# of files profiled as one and groups profiled file by file instead.
+# it gave way (_gives_way), pieces that pass B uploaded again from host
+# copies, files profiled through a sharded runner (slimm_tpu_torch.parallel),
+# and groups of files profiled as one and groups profiled file by file
+# instead.
 path_counts = dict.fromkeys((
-    "overlap_files", "overlap_pieces", "overlap_fallback_no_native",
+    "overlap_files", "overlap_pieces",
     "overlap_fallback_open", "overlap_fallback_bins_past_uint16",
     "overlap_fallback_overflow", "overlap_fallback_not_grouped",
     "stream_files", "stream_chunks_v2", "stream_chunks_v1",
-    "stream_fallback_no_native", "stream_fallback_open",
+    "stream_fallback_open",
     "stream_fallback_not_grouped", "stream_fallback_overflow",
     "pass_b_reuploads", "sharded_files", "batched_groups",
     "batched_fallback_per_file"), 0)
@@ -113,11 +114,9 @@ def reset_path_counts():
 
 
 # Host-clock marks for a caller that splits its time: None (off), or a list
-# that gets (point, time.perf_counter()).  "cutoffs", right after the
-# cutoffs' one host sync, fires in _core_after_a on every path, and a
-# benchmark splits each call there.  profile_files_batched adds "decoded",
-# "tables", "fetched" and "finalized" (chip_smoke.py's host_split reads
-# them).  Stages are spans (utils/timer.py `span`), never new marks.
+# that gets ("cutoffs", time.perf_counter()) right after the cutoffs' one
+# host sync, in _core_after_a on every path; a benchmark splits each call
+# there.  Stages are spans (utils/timer.py `span`), never new marks.
 host_marks = None
 
 
@@ -924,21 +923,15 @@ def profile_arrays(options: ProfileOptions, db: SlimmDatabase,
     device = _device(device, sharded_runner)
     engine = engine or EngineOptions()
     timer = PhaseTimer(enabled=engine.phase_log)
-    st = ProfileState(options=options, ac__taxid=db.ac__taxid,
-                      taxid__name=db.taxid__name)
-    st.avg_read_length = avg_read_length
-    if options.bin_width == 0:
-        options.bin_width = avg_read_length
-
     timer.start("Intializing coverages for all reference genome ... ")
     with span("init"):
-        st.init_contigs(contig_names, contig_lengths, options.bin_width)
-        dense = tensorize(db, contig_names)
+        st, dense = _begin(options, db, contig_names, contig_lengths,
+                           avg_read_length)
     timer.lap()
 
     st.hits_count = hits_count
     if hits_count == 0:
-        print("[WARNING] No mapped reads found in BAM file!", file=sys.stderr)
+        _warn_no_hits()
         return st
     st.matches_count = n_reads
 
@@ -973,10 +966,32 @@ def _device(device, sharded_runner) -> torch.device | None:
     return device
 
 
+def _begin(options: ProfileOptions, db: SlimmDatabase, contig_names,
+           contig_lengths, avg_read_length: int, dense=None):
+    """The host state of one profile: (its ProfileState after init_contigs,
+    the dense taxonomy of its contigs).  options.bin_width 0 becomes the
+    average read length (slimm.hpp:412-413).  A group of files with one
+    header passes the `dense` of its first file to the others."""
+    st = ProfileState(options=options, ac__taxid=db.ac__taxid,
+                      taxid__name=db.taxid__name)
+    st.avg_read_length = avg_read_length
+    if options.bin_width == 0:
+        options.bin_width = avg_read_length
+    st.init_contigs(contig_names, contig_lengths, options.bin_width)
+    if dense is None:
+        dense = tensorize(db, contig_names)
+    return st, dense
+
+
+def _warn_no_hits() -> None:
+    print("[WARNING] No mapped reads found in BAM file!", file=sys.stderr)
+
+
 def _grid(device, runner, make_tables) -> Grid:
     """The Grid of one profile: `device`'s alone, or `runner`'s grid
     (counted in path_counts["sharded_files"]); make_tables(device) builds
-    the tables on a device."""
+    the tables on a device (tables.device_tables, or group_tables for a
+    group of files)."""
     with span("init"):
         if runner is None:
             return Grid.single(make_tables(device))
@@ -1085,15 +1100,14 @@ def pairs_into(st, pair_words, dense) -> None:
 
 # copied from slimm_tpu/engine/pipeline.py:1253-1263
 def open_alignment_file(path: str, engine: EngineOptions | None = None):
-    """The native C++ decoder (io/native.py, built at first use), or with
-    `use_native=False` the pure-Python reference decoder — identical array
-    contract."""
+    """The native C++ decoder (io/native.py, built at first use; a failed
+    build raises), or with `use_native=False` the pure-Python reference
+    decoder — identical array contract."""
     engine = engine or EngineOptions()
     if engine.use_native:
         from ..io import native
-        if native.available():
-            return native.NativeAlignmentFile(
-                path, hash_names=engine.hash_read_names)
+        return native.NativeAlignmentFile(path,
+                                          hash_names=engine.hash_read_names)
     from ..io import AlignmentFile
     return AlignmentFile(path)
 
@@ -1240,7 +1254,9 @@ def _pass_a_pieces(next_piece, grid: Grid, *, budget, counter):
     bytes in all (None: all), later ones as host copies (pipeline.py:
     1741-1768): the piece itself on one data shard, else a non_blocking
     copy into pinned memory, which pass B reads after the cutoffs' sync on
-    the home device.  Returns (acc[d][m], kept[d])."""
+    the home device.  Returns (acc[d][m], kept[d]).  Input that stops
+    being qname-grouped partway, or one read's targets past a piece, gives
+    way (_GiveWay)."""
     def zeros(t, n):
         return torch.zeros(n, dtype=torch.int32, device=t.device)
 
@@ -1249,8 +1265,15 @@ def _pass_a_pieces(next_piece, grid: Grid, *, budget, counter):
            for row in grid.tables]
     kept = [[] for _ in range(grid.D)]
     while True:
-        with span("decode_wait"):
-            piece = next_piece()
+        try:
+            with span("decode_wait"):
+                piece = next_piece()
+        except ValueError as e:
+            if "not qname-grouped" not in str(e):
+                raise
+            raise _GiveWay("not_grouped") from e
+        except OverflowError as e:
+            raise _GiveWay("overflow") from e
         if piece is None:
             break
         fmt, host, n, k_steps, window = piece
@@ -1299,10 +1322,10 @@ def _pass_b_pieces(kept, t: DeviceTables):
         yield read_id, rid, t_gbin, read_id >= 0, k_steps, window
 
 
-def _stream_totals(st, sr, path, runner=None) -> int:
-    """The stream's totals into `st`, after its last piece; its hits.
-    Across processes the totals are summed first, so that every process
-    takes the same turn at `hits_count == 0` (parallel/streaming.py:
+def _stream_totals(st, sr, path, runner=None) -> bool:
+    """The stream's totals into `st`, after its last piece; whether any
+    record mapped.  Across processes the totals are summed first, so that
+    every process takes the same turn at no hits (parallel/streaming.py:
     184-190)."""
     n_reads, hits_count, _ = sr.totals()
     if runner is not None:
@@ -1313,8 +1336,8 @@ def _stream_totals(st, sr, path, runner=None) -> int:
     st.hits_count = hits_count
     st.matches_count = n_reads
     if hits_count == 0:
-        print("[WARNING] No mapped reads found in BAM file!", file=sys.stderr)
-    return hits_count
+        _warn_no_hits()
+    return hits_count > 0
 
 
 def _core_after_pieces(grid: Grid, acc, kept, engine):
@@ -1326,37 +1349,54 @@ def _core_after_pieces(grid: Grid, acc, kept, engine):
         emit_coverage=engine.fetch_coverage)
 
 
-# copied from slimm_tpu/engine/pipeline.py:1597-1624
-def _stream_init(options: ProfileOptions, db: SlimmDatabase, sr,
-                 avg: int | None = None):
-    """Shared streaming setup: ProfileState + dense taxonomy + the numpy
-    bin-table geometry both the single-device and the sharded streaming
-    paths dispatch against.  `avg` overrides the stream's sampled
-    average read length (multi-host: process 0's sample is broadcast so
-    every process agrees on bin_width)."""
-    st = ProfileState(options=options, ac__taxid=db.ac__taxid,
-                      taxid__name=db.taxid__name)
-    if avg is None:
-        avg = sr.avg_read_length
-    st.avg_read_length = avg
-    if options.bin_width == 0:
-        options.bin_width = avg
-    with span("init"):
-        st.init_contigs(sr.contig_names, sr.contig_lengths,
-                        options.bin_width)
-        dense = tensorize(db, sr.contig_names)
-    total_bins = int(st.nbins.sum())
-    geom = dict(
-        n_contigs=len(st.accessions),
-        total_bins=total_bins,
-        total_bins_pad=-(-total_bins // 1024) * 1024,
-        lengths_u32=st.lengths.astype(np.uint32),
-        bin_offset=st.bin_offset.astype(np.int32),
-        bin_ends=(st.bin_offset + st.nbins).astype(np.int32),
-        half=np.int32(avg // 2),
-        bin_width=np.int32(options.bin_width),
-        q=np.float32(options.cov_cut_off))
-    return st, dense, geom
+class _GiveWay(Exception):
+    """A streamed path hands its file back to the whole-file path
+    (pipeline.py:79); the argument is the cause, as path_counts names it."""
+
+
+def _gives_way(kind):
+    """Decorates a streamed path, `kind` "overlap" or "stream", called as
+    (options, db, path, **kw): where it raises _GiveWay it returns None.
+    The one place that counts the cause in path_counts and puts the
+    caller's options.bin_width back (_begin may have set it).  Over a
+    runner across processes it raises instead: each process would profile
+    its own input alone."""
+    def wrap(path_fn):
+        @functools.wraps(path_fn)
+        def run(options, db, path, **kw):
+            bin_width = options.bin_width
+            try:
+                return path_fn(options, db, path, **kw)
+            except _GiveWay as e:
+                options.bin_width = bin_width
+                path_counts[f"{kind}_fallback_{e}"] += 1
+                runner = kw.get("runner")
+                if runner is not None and runner.distributed:
+                    raise ValueError(
+                        f"{path}: streaming across processes cannot fall "
+                        f"back to the whole-file path ({e})") from None
+                return None
+        return run
+    return wrap
+
+
+def _open_stream(path: str, engine: EngineOptions):
+    """The native stream reader of `path`; a file it cannot open gives
+    way."""
+    from ..io import native
+    try:
+        with span("decode_wait"):
+            return native.NativeStreamReader(
+                path, hash_names=engine.hash_read_names)
+    except ValueError:
+        raise _GiveWay("open") from None
+
+
+def _v2_fits(contig_lengths, bin_width) -> bool:
+    """Whether every contig's bins, as init_contigs counts them, fit the v2
+    pieces' uint16 local bin."""
+    nbins = np.asarray(contig_lengths, np.int64) // bin_width + 1
+    return not len(nbins) or int(nbins.max()) <= V2_MAX_BIN
 
 
 def _rid_dtype(n_contigs):
@@ -1368,18 +1408,22 @@ def _rid_dtype(n_contigs):
     return np.int32
 
 
-def _v2_pieces(sr, cap, geom):
+def _v2_pieces(sr, cap, st):
     """next_piece() over the v2 pieces of at most `cap` targets that the
-    C++ decoder encodes while its tokenizer thread runs ahead.  Each piece
-    is planned from its own longest read, which the same C++ take reports
-    (pipeline.py:1385-1398).  The JAX package's chunk streaming plans from
-    sr.max_targets instead (pipeline.py:1700), which the reader gives as 0
-    until EOF (ROADMAP C1)."""
-    rid_dtype = _rid_dtype(geom["n_contigs"])
+    C++ decoder encodes against `st`'s contigs and bin width while its
+    tokenizer thread runs ahead.  Each piece is planned from its own
+    longest read, which the same C++ take reports (pipeline.py:1385-1398).
+    The JAX package's chunk streaming plans from sr.max_targets instead
+    (pipeline.py:1700), which the reader gives as 0 until EOF (ROADMAP
+    C1)."""
+    rid_dtype = _rid_dtype(len(st.accessions))
+    lengths = st.lengths.astype(np.uint32)
+    half = np.int32(st.avg_read_length // 2)
+    bin_width = np.int32(st.options.bin_width)
 
     def next_piece():
-        piece = sr.next_piece_v2(cap, cap, geom["lengths_u32"], geom["half"],
-                                 geom["bin_width"], rid_dtype, with_plan=True)
+        piece = sr.next_piece_v2(cap, cap, lengths, half, bin_width,
+                                 rid_dtype, with_plan=True)
         if piece is None:
             return None
         bnd, rid_p, bin_p, nv, _, max_run = piece
@@ -1390,79 +1434,12 @@ def _v2_pieces(sr, cap, geom):
     return next_piece
 
 
-def _max_bin(st) -> int:
-    return int(st.nbins.max() if len(st.nbins) else 0)
-
-
-def _profile_file_overlap(options: ProfileOptions, db: SlimmDatabase,
-                          path: str, *, device, engine: EngineOptions
-                          ) -> ProfileState | None:
-    """Whole-file profile with pass A overlapping the decode
-    (pipeline.py:1306-1446).  Returns None, with options.bin_width as it
-    was, where the JAX package's overlap path gives way: no native
-    decoder, a file the stream reader cannot open, bins past uint16, one
-    read's targets past a piece, or input that stops being qname-grouped
-    partway (coordinate-sorted input is regrouped by the decoder at EOF and
-    stays on this path)."""
-    from ..io import native
-
-    def give_way(cause):
-        path_counts["overlap_fallback_" + cause] += 1
-
-    if not native.available():
-        return give_way("no_native")
-    try:
-        with span("decode_wait"):
-            sr = native.NativeStreamReader(path,
-                                           hash_names=engine.hash_read_names)
-    except ValueError:
-        return give_way("open")
-    bw0 = options.bin_width
-    st, dense, geom = _stream_init(options, db, sr)
-    if _max_bin(st) > V2_MAX_BIN:
-        options.bin_width = bw0
-        return give_way("bins_past_uint16")
-    timer = PhaseTimer(enabled=engine.phase_log)
-    timer.start("Analysing alignments, reads and references ....... ")
-
-    # the JAX package's piece size: at the default cap, scaled up so that a
-    # file makes at most ~56 pieces (bytes per record over-estimated:
-    # ~100 for SAM text, ~25 for BGZF); an explicit cap is used exactly
-    cap = engine.overlap_piece_targets
-    if cap == type(engine)().overlap_piece_targets:
-        bpr = 25 if path.lower().endswith((".bam", ".gz", ".bgzf")) else 100
-        try:
-            est_targets = os.path.getsize(path) // bpr + 1
-        except OSError:
-            est_targets = 0
-        cap = max(cap, -(-est_targets // 56))
-    n_s = -(-cap // 2048) * 2048
-    with span("init"):
-        grid = Grid.single(device_tables(st, dense, options, device))
-
-    try:
-        acc, kept = _pass_a_pieces(_v2_pieces(sr, n_s, geom), grid,
-                                   budget=None, counter="overlap_pieces")
-    except ValueError as e:
-        if "not qname-grouped" not in str(e):
-            raise
-        options.bin_width = bw0
-        return give_way("not_grouped")
-    except OverflowError:  # one read's targets exceed a piece
-        options.bin_width = bw0
-        return give_way("overflow")
-    path_counts["overlap_files"] += 1
-    if _stream_totals(st, sr, path) == 0:
-        timer.lap()
-        return st
-    out = _core_after_pieces(grid, acc, kept, engine)
-    return _finalize_state(st, out, dense, engine, options, timer)
-
-
-def _decode_ahead(sr, chunk_targets):
-    """v1 chunks decoded ahead by a daemon thread through a queue of two
-    (pipeline.py:1703-1734; also `_open_stream`, 1555-1594).  Returns
-    (next_chunk, thread); next_chunk() re-raises the decoder's errors."""
+def _v1_pieces(sr, chunk_targets):
+    """next_piece() over v1 chunks that a daemon thread decodes ahead
+    through a queue of two (pipeline.py:1555-1594, 1703-1734), each
+    planned from its read ids.  It re-raises the
+    decoder's errors, and joins the thread once the thread has returned
+    (at EOF or on an error)."""
     feed: queue.Queue = queue.Queue(maxsize=2)
 
     def producer():
@@ -1478,13 +1455,62 @@ def _decode_ahead(sr, chunk_targets):
     th = threading.Thread(target=producer, daemon=True)
     th.start()
 
-    def next_chunk():
-        kind, val = feed.get()
+    def next_piece():
+        kind, chunk = feed.get()
+        if kind == "err" or chunk is None:
+            th.join()
         if kind == "err":
-            raise val
-        return val
+            raise chunk
+        if chunk is None:
+            return None
+        _, k_steps, window = seg_plan(chunk[0])
+        return "v1", chunk, len(chunk[0]), k_steps, window
 
-    return next_chunk, th
+    return next_piece
+
+
+@_gives_way("overlap")
+def _profile_file_overlap(options: ProfileOptions, db: SlimmDatabase,
+                          path: str, *, device, engine: EngineOptions
+                          ) -> ProfileState | None:
+    """Whole-file profile with pass A overlapping the decode
+    (pipeline.py:1306-1446).  Gives way (None) where the JAX package's
+    overlap path does: a file the stream reader cannot open, bins past
+    uint16, one read's targets past a piece, or input that stops being
+    qname-grouped partway (coordinate-sorted input is regrouped by the
+    decoder at EOF and stays on this path)."""
+    sr = _open_stream(path, engine)
+    if not _v2_fits(sr.contig_lengths,
+                    options.bin_width or sr.avg_read_length):
+        raise _GiveWay("bins_past_uint16")
+    with span("init"):
+        st, dense = _begin(options, db, sr.contig_names, sr.contig_lengths,
+                           sr.avg_read_length)
+    timer = PhaseTimer(enabled=engine.phase_log)
+    timer.start("Analysing alignments, reads and references ....... ")
+
+    # the JAX package's piece size: at the default cap, scaled up so that a
+    # file makes at most ~56 pieces (bytes per record over-estimated:
+    # ~100 for SAM text, ~25 for BGZF); an explicit cap is used exactly
+    cap = engine.overlap_piece_targets
+    if cap == type(engine)().overlap_piece_targets:
+        bpr = 25 if path.lower().endswith((".bam", ".gz", ".bgzf")) else 100
+        try:
+            est_targets = os.path.getsize(path) // bpr + 1
+        except OSError:
+            est_targets = 0
+        cap = max(cap, -(-est_targets // 56))
+    n_s = -(-cap // 2048) * 2048
+    grid = _grid(device, None,
+                 lambda dev: device_tables(st, dense, options, dev))
+    acc, kept = _pass_a_pieces(_v2_pieces(sr, n_s, st), grid, budget=None,
+                               counter="overlap_pieces")
+    path_counts["overlap_files"] += 1
+    if not _stream_totals(st, sr, path):
+        timer.lap()
+        return st
+    out = _core_after_pieces(grid, acc, kept, engine)
+    return _finalize_state(st, out, dense, engine, options, timer)
 
 
 @_request
@@ -1497,79 +1523,55 @@ def profile_file_streaming(options: ProfileOptions, db: SlimmDatabase,
     the same result as profile_file, with the records on the device only
     up to `engine.stream_device_cache_bytes`.  v2 pieces while every
     contig's bins fit uint16, else v1 chunks.  Falls back to profile_file
-    where the JAX package does: no native decoder, a file the stream
-    reader cannot open, input that stops being qname-grouped partway, or
-    one read's targets past a v2 piece; each cause is counted in
-    `path_counts`.  With a `sharded_runner` the pieces are routed over its
-    data shards and the bins split over its model shards; across processes
-    a fall back raises instead (each process would profile its own input
-    alone).  Without either, `device` is the card."""
+    where the JAX package does: a file the stream reader cannot open,
+    input that stops being qname-grouped partway, or one read's targets
+    past a v2 piece; each cause is counted in `path_counts`.  With a
+    `sharded_runner` the pieces are routed over its data shards and the
+    bins split over its model shards; across processes a fall back raises
+    instead (each process would profile its own input alone).  Without
+    either, `device` is the card."""
     device = _device(device, sharded_runner)
     engine = engine or EngineOptions()
-    chunk_targets = chunk_targets or engine.stream_chunk or (4 << 20)
+    st = _stream_file(options, db, path, device=device, engine=engine,
+                      chunk_targets=(chunk_targets or engine.stream_chunk
+                                     or (4 << 20)),
+                      runner=sharded_runner)
+    if st is None:
+        st = profile_file(options, db, path, device=device, engine=engine,
+                          sharded_runner=sharded_runner)
+    return st
+
+
+@_gives_way("stream")
+def _stream_file(options: ProfileOptions, db: SlimmDatabase, path: str, *,
+                 device, engine: EngineOptions, chunk_targets: int, runner
+                 ) -> ProfileState | None:
+    """profile_file_streaming's own path; None where it gives way."""
     timer = PhaseTimer(enabled=engine.phase_log)
     timer.start("Streaming alignment chunks ....................... ")
-    from ..io import native
-    bw0 = options.bin_width
-
-    def give_way(cause, th=None):
-        path_counts["stream_fallback_" + cause] += 1
-        if th is not None:
-            th.join()
-        if sharded_runner is not None and sharded_runner.distributed:
-            raise ValueError(f"{path}: streaming across processes cannot "
-                             f"fall back to the whole-file path ({cause})")
-        options.bin_width = bw0  # undo _stream_init's auto default
-        return profile_file(options, db, path, device=device, engine=engine,
-                            sharded_runner=sharded_runner)
-
-    if not native.available():
-        return give_way("no_native")
-    try:
-        with span("decode_wait"):
-            sr = native.NativeStreamReader(path,
-                                           hash_names=engine.hash_read_names)
-    except ValueError:
-        return give_way("open")
-
+    sr = _open_stream(path, engine)
     avg = sr.avg_read_length
-    if sharded_runner is not None:
-        avg = sharded_runner.broadcast(avg)
-    st, dense, geom = _stream_init(options, db, sr, avg=avg)
-    grid = _grid(device, sharded_runner,
+    if runner is not None:
+        avg = runner.broadcast(avg)
+    with span("init"):
+        st, dense = _begin(options, db, sr.contig_names, sr.contig_lengths,
+                           avg)
+    grid = _grid(device, runner,
                  lambda dev: device_tables(st, dense, options, dev))
-    th = None
-    if _max_bin(st) <= V2_MAX_BIN:
+    if _v2_fits(st.lengths, options.bin_width):
         next_piece = _v2_pieces(sr, _bucket(chunk_targets, engine.batch_pad),
-                                geom)
+                                st)
         counter = "stream_chunks_v2"
     else:
-        next_chunk, th = _decode_ahead(sr, chunk_targets)
+        next_piece = _v1_pieces(sr, chunk_targets)
         counter = "stream_chunks_v1"
-
-        def next_piece():
-            chunk = next_chunk()
-            if chunk is None:
-                return None
-            _, k_steps, window = seg_plan(chunk[0])
-            return "v1", chunk, len(chunk[0]), k_steps, window
-
-    try:
-        acc, kept = _pass_a_pieces(next_piece, grid,
-                                   budget=engine.stream_device_cache_bytes,
-                                   counter=counter)
-    except ValueError as e:
-        if "not qname-grouped" not in str(e):
-            raise
-        return give_way("not_grouped", th)
-    except OverflowError:  # one read's targets exceed a v2 piece
-        return give_way("overflow", th)
-    if th is not None:
-        th.join()
+    acc, kept = _pass_a_pieces(next_piece, grid,
+                               budget=engine.stream_device_cache_bytes,
+                               counter=counter)
     path_counts["stream_files"] += 1
-    hits_count = _stream_totals(st, sr, path, sharded_runner)
+    hits = _stream_totals(st, sr, path, runner)
     timer.lap()
-    if hits_count == 0:
+    if not hits:
         return st
     timer.start("Analysing alignments, reads and references ....... ")
     out = _core_after_pieces(grid, acc, kept, engine)
@@ -1637,7 +1639,6 @@ def profile_files_batched(options: ProfileOptions, db: SlimmDatabase,
         for path in paths:
             af = open_alignment_file(path, engine)
             decoded.append((path, af, af.load()))
-    _mark("decoded")
     names0 = list(decoded[0][1].contig_names)
     lengths0 = np.asarray(decoded[0][1].contig_lengths)
     same_ref = all(
@@ -1655,16 +1656,12 @@ def profile_files_batched(options: ProfileOptions, db: SlimmDatabase,
     timer = PhaseTimer(enabled=engine.phase_log)
     timer.start("Intializing coverages for all reference genome ... ")
     with span("init"):
-        dense = tensorize(db, names0)
+        dense = None
         preps, empties = [], []
         for path, af, batch in decoded:
             opts_k = copy.deepcopy(options)
-            st = ProfileState(options=opts_k, ac__taxid=db.ac__taxid,
-                              taxid__name=db.taxid__name)
-            st.avg_read_length = batch.avg_read_length
-            if opts_k.bin_width == 0:
-                opts_k.bin_width = batch.avg_read_length
-            st.init_contigs(names0, lengths0, opts_k.bin_width)
+            st, dense = _begin(opts_k, db, names0, lengths0,
+                               batch.avg_read_length, dense)
             st.hits_count = batch.hits_count
             st.matches_count = batch.n_reads
             if batch.hits_count == 0:
@@ -1697,12 +1694,11 @@ def profile_files_batched(options: ProfileOptions, db: SlimmDatabase,
             path_counts["batched_groups"] += 1
         timer.lap()
     for path, st in empties:
-        print("[WARNING] No mapped reads found in BAM file!", file=sys.stderr)
+        _warn_no_hits()
         results[path] = st
     for (path, st, opts_k, _), out in grouped:
         _finalize_state(st, out, dense, engine, opts_k,
                         PhaseTimer(enabled=False))
-        _mark("finalized")
         results[path] = st
     return [(path, results[path]) for path in paths]
 
@@ -1739,10 +1735,8 @@ def _profile_group(preps, dense, device, engine) -> list:
         rid = np.concatenate([np.asarray(b.rid) + k * C
                               for k, b in enumerate(batches)])
         pos = np.concatenate([b.pos for b in batches])
-    with span("init"):
-        grid = Grid.single(group_tables(
-            states, [opts for _, _, opts, _ in preps], dense, device))
-    _mark("tables")
+    grid = _grid(device, None, lambda dev: group_tables(
+        states, [opts for _, _, opts, _ in preps], dense, dev))
     out = fused_profile_shards(grid, grid.shards(read_id, rid, pos),
                                dedup_window=0, k_steps=k_steps,
                                window=window,
@@ -1757,5 +1751,4 @@ def _profile_group(preps, dense, device, engine) -> list:
         outs.append(dict(packed=packed[k],
                          **{key: h[lo:hi] for key, h in hists.items()}))
         lo = hi
-    _mark("fetched")
     return outs

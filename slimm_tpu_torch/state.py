@@ -309,14 +309,9 @@ class ProfileState:
     def _propagate_native(self) -> bool:
         """Native C++ propagate_counts (stpu_propagate_run): exact
         sequential semantics of the loop above.  Returns False when the
-        native library is absent or declines (the loop then runs — and
-        raises — exactly as before)."""
-        try:
-            from .io import native
-            if not native.available():
-                return False
-        except Exception:  # pragma: no cover - import environment issues
-            return False
+        native code declines (the loop then runs — and raises — exactly as
+        before); a failed build of the library raises."""
+        from .io import native
         n_contigs = len(self.accessions)
         # name_of per snapshot key first: replicates the pure loop's
         # insert-on-miss side effect on taxid__name and yields the ranks

@@ -292,12 +292,12 @@ def test_cli_directory_splits_past_group_limit(limit, groups, alone, toy_dir,
 
 
 @pytest.mark.parametrize("limit,points", [
-    (None, ["tables", "cutoffs", "fetched"]),
-    (720, ["tables", "cutoffs", "fetched"] * 2)])
+    (None, ["cutoffs"]),
+    (720, ["cutoffs"] * 2)])
 def test_batched_host_marks_in_order(limit, points, toy_dir, tmp_path,
                                      monkeypatch):
-    # the host clock at the batched path's fixed points, once per sub-group
-    # and per file; off (None) unless a caller sets a list
+    # the host clock after the cutoffs' sync, once per (sub-)group; off
+    # (None) unless a caller sets a list
     paths = GROUPS["mix3"](str(tmp_path)) + [_empty(str(tmp_path))]
     db = to_port(build_toy_db(toy_dir))
     eng = to_port(EngineOptions(phase_log=False, fetch_coverage=False))
@@ -308,8 +308,7 @@ def test_batched_host_marks_in_order(limit, points, toy_dir, tmp_path,
     marks = tp.host_marks
     tp.profile_files_batched(ProfileOptions(), db, paths, device=CPU,
                              engine=eng)
-    assert [p for p, _ in marks] == (["decoded"] + points
-                                     + ["finalized"] * 3)
+    assert [p for p, _ in marks] == points
     times = [t for _, t in marks]
     assert times == sorted(times)
 

@@ -28,6 +28,7 @@ from slimm_tpu_torch.parallel.streaming import (
 
 from tests.test_engine import assert_states_equal
 from tests.test_torch_host import to_port
+from tests.test_torch_stream import _fallback_bin_widths
 from tests.toy import build_toy_dataset, build_toy_db, write_sam
 
 torch.set_num_threads(1)
@@ -132,15 +133,18 @@ def test_sharded_streaming_no_coverage(big_ds):
                                   st_t.uniq_reads_count2)
 
 
-@pytest.mark.parametrize("cause", ["no_native", "not_grouped", "overflow"])
+@pytest.mark.parametrize("cause", ["open", "not_grouped", "overflow"])
 def test_sharded_streaming_gives_way(cause, toy_dir, monkeypatch):
     # each cause is counted, bin_width is restored, and the file is profiled
     # whole over the same grid
     db = build_toy_db(toy_dir)
     st_w = tp.profile_file(TProfileOptions(), to_port(db),
                            toy_dir.sam_path, device=CPU, engine=_teng())
-    if cause == "no_native":
-        monkeypatch.setattr(native, "available", lambda: False)
+    if cause == "open":
+        def refuse(self, path, *args, **kw):
+            raise ValueError(f"{path}: the stream reader cannot take it")
+
+        monkeypatch.setattr(native.NativeStreamReader, "__init__", refuse)
     else:
         def fail(*args, **kw):
             if cause == "overflow":
@@ -148,17 +152,19 @@ def test_sharded_streaming_gives_way(cause, toy_dir, monkeypatch):
             raise ValueError("input is not qname-grouped")
 
         monkeypatch.setattr(native.NativeStreamReader, "next_piece_v2", fail)
+    seen = _fallback_bin_widths(monkeypatch)
     options = TProfileOptions()
     st = tp.profile_file_streaming(
         options, to_port(db), toy_dir.sam_path, engine=_teng(),
         chunk_targets=512,
         sharded_runner=ShardedRunner(num_shards=2, model_shards=2,
                                      device="cpu"))
+    assert seen == [0]
     assert tp.path_counts["stream_fallback_" + cause] == 1
     assert tp.path_counts["stream_files"] == 0
     assert tp.path_counts["sharded_files"] >= 1
     assert_states_equal(st_w, st)
-    if cause == "no_native":
+    if cause == "open":
         st_j = profile_file_streaming_sharded(
             ProfileOptions(), copy.deepcopy(db), toy_dir.sam_path,
             JaxShardedRunner(num_shards=2, model_shards=2), engine=_eng(),
@@ -171,13 +177,18 @@ def test_streaming_across_processes_raises_instead_of_falling_back(
     class Distributed(ShardedRunner):
         distributed = True
 
-    monkeypatch.setattr(native, "available", lambda: False)
-    with pytest.raises(ValueError, match="across processes"):
+    def overflow(*args, **kw):
+        raise OverflowError("single read exceeds the piece cap")
+
+    monkeypatch.setattr(native.NativeStreamReader, "next_piece_v2", overflow)
+    options = TProfileOptions()
+    with pytest.raises(ValueError, match="across processes.*overflow"):
         tp.profile_file_streaming(
-            TProfileOptions(), to_port(build_toy_db(toy_dir)),
+            options, to_port(build_toy_db(toy_dir)),
             toy_dir.sam_path, engine=_teng(),
             sharded_runner=Distributed(num_shards=2, device="cpu"))
-    assert tp.path_counts["stream_fallback_no_native"] == 1
+    assert tp.path_counts["stream_fallback_overflow"] == 1
+    assert options.bin_width == 0
 
 
 # -- CLI -------------------------------------------------------------------------

@@ -30,11 +30,11 @@ CPU = torch.device("cpu")
 
 # the keys of path_counts before the work counters came: they stay exactly
 PATH_KEYS = {
-    "overlap_files", "overlap_pieces", "overlap_fallback_no_native",
+    "overlap_files", "overlap_pieces",
     "overlap_fallback_open", "overlap_fallback_bins_past_uint16",
     "overlap_fallback_overflow", "overlap_fallback_not_grouped",
     "stream_files", "stream_chunks_v2", "stream_chunks_v1",
-    "stream_fallback_no_native", "stream_fallback_open",
+    "stream_fallback_open",
     "stream_fallback_not_grouped", "stream_fallback_overflow",
     "pass_b_reuploads", "sharded_files", "batched_groups",
     "batched_fallback_per_file"}
@@ -125,13 +125,13 @@ ENTRIES = {
             engine=_eng())],
         "decode_wait init plan plan init upload pass_a cutoffs pass_b fetch"
         "( fetch finalize){3}",
-        ["decoded", "tables", "cutoffs", "fetched"] + ["finalized"] * 3),
+        ["cutoffs"]),
     "batched_per_file": (
         lambda toy: [st for _, st in tp.profile_files_batched(
             ProfileOptions(), toy["db"], toy["mixed"], device=CPU,
             engine=_eng(overlap_min_bytes=0))],
         f"decode_wait( decode_wait init init {CORE}){{2}}",
-        ["decoded", "cutoffs", "cutoffs"]),
+        ["cutoffs", "cutoffs"]),
 }
 
 
@@ -225,14 +225,20 @@ def test_outputs_are_the_same_with_a_profiler_running(toy, entry, tmp_path):
 
 
 @pytest.mark.parametrize("entry", list(ENTRIES) + ["streaming_fallback"])
-def test_calls_counts_outermost_calls(toy, entry):
+def test_calls_counts_outermost_calls(toy, entry, monkeypatch):
     if entry == "streaming_fallback":
-        # no native decoder: profile_file_streaming gives way to
-        # profile_file, which calls profile_arrays: one request
+        # one read's targets past a piece: profile_file_streaming gives way
+        # to profile_file, which calls profile_arrays: one request
+        def overflow(*args, **kw):
+            raise OverflowError("single read exceeds the piece cap")
+
+        monkeypatch.setattr(native.NativeStreamReader, "next_piece_v2",
+                            overflow)
+
         def call(toy):
             return [tp.profile_file_streaming(
                 ProfileOptions(), toy["db"], toy["sam"], device=CPU,
-                engine=_eng(use_native=False))]
+                engine=_eng())]
     else:
         call = ENTRIES[entry][0]
     call(toy)
@@ -242,6 +248,9 @@ def test_calls_counts_outermost_calls(toy, entry):
     assert tp.work_counts["h2d_bytes"] > 0
     assert tp.work_counts["minor_faults"] >= 0
     assert tp.work_counts["cpu_s"] > 0
+    if entry == "streaming_fallback":
+        assert tp.path_counts["stream_fallback_overflow"] == 2
+        assert tp.path_counts["stream_files"] == 0
 
 
 @pytest.mark.parametrize("deduped", [False, True], ids=["raw", "deduped"])

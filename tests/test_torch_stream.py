@@ -23,6 +23,7 @@ from slimm_tpu_torch.config import EngineOptions as TEngineOptions
 from slimm_tpu_torch.config import ProfileOptions as TProfileOptions
 from slimm_tpu_torch.engine import pipeline as tp
 from slimm_tpu_torch.io import native
+from slimm_tpu_torch.state import ProfileState
 from slimm_tpu_torch.tables import DeviceTables
 
 from tests.test_engine import assert_states_equal
@@ -61,6 +62,21 @@ def _jax_and_port(jax_fn, port_fn, db, path, options=None, **kw):
                    **{k: to_port(v) if k == "engine" else v
                       for k, v in kw.items()})
     return st_j, st_t
+
+
+def _fallback_bin_widths(monkeypatch):
+    """The options.bin_width that each call of profile_file is given: a
+    streamed path that gives way hands on the caller's options as they
+    were."""
+    seen = []
+    whole = tp.profile_file
+
+    def record(options, *args, **kw):
+        seen.append(options.bin_width)
+        return whole(options, *args, **kw)
+
+    monkeypatch.setattr(tp, "profile_file", record)
+    return seen
 
 
 def _port_whole(db, path, options=None):
@@ -457,10 +473,13 @@ def test_late_regroup_falls_back(tmp_path, monkeypatch):
     records.append(("a000050", 0, 2, 99, 8))
     sam = write_sam(str(tmp_path), records, name="lateshuffle.sam")
     db = build_toy_db(build_toy_dataset(str(tmp_path)))
+    seen = _fallback_bin_widths(monkeypatch)
     st_j, st_t = _jax_and_port(jp.profile_file_streaming,
                                tp.profile_file_streaming, db, sam,
                                engine=_eng(), chunk_targets=8192)
     assert tp.path_counts["stream_files"] == 0
+    assert tp.path_counts["stream_fallback_not_grouped"] == 1
+    assert seen == [0]
     assert_states_equal(st_j, st_t)
     options = TProfileOptions()
     assert tp._profile_file_overlap(
@@ -490,20 +509,71 @@ def test_streamed_paths_zero_mapped(path, toy_dir, tmp_path):
     assert tp.path_counts[f"{path}_files"] == 1
 
 
-def test_give_way_without_native_decoder(toy_dir, monkeypatch):
+@pytest.mark.parametrize("entry", ["overlap", "streaming", "propagate"])
+def test_failed_native_build_raises(entry, toy_dir, monkeypatch):
+    # no silent fallback: where the native library cannot be built, the
+    # streamed paths and the native propagation raise
+    db = to_port(build_toy_db(toy_dir))
+
+    def fail():
+        raise RuntimeError("g++ failed on native/slimm_native.cpp")
+
+    monkeypatch.setattr(native, "load_library", fail)
+    if entry == "overlap":
+        def call():
+            return tp.profile_file(TProfileOptions(), db, toy_dir.sam_path,
+                                   device=CPU,
+                                   engine=_teng(overlap_min_bytes=1))
+    elif entry == "streaming":
+        def call():
+            return tp.profile_file_streaming(TProfileOptions(), db,
+                                             toy_dir.sam_path, device=CPU,
+                                             engine=_teng())
+    else:
+        # the Python decoder, then propagate_counts past its native bound
+        monkeypatch.setattr(ProfileState, "NATIVE_PROPAGATE_MIN", 0)
+
+        def call():
+            return tp.profile_file(TProfileOptions(), db, toy_dir.sam_path,
+                                   device=CPU,
+                                   engine=_teng(use_native=False,
+                                                overlap_min_bytes=0))
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed") as raised:
+        call()
+    if entry == "propagate":
+        assert "_propagate_native" in [e.name for e in raised.traceback]
+        assert tp.work_counts["python_propagations"] == 0
+    assert not any(n for key, n in tp.path_counts.items()
+                   if "fallback" in key)
+    assert tp.path_counts["overlap_files"] == tp.path_counts[
+        "stream_files"] == 0
+
+
+def test_give_way_where_the_reader_cannot_open(toy_dir, monkeypatch):
+    # the stream reader refuses the file: both streamed paths give way
+    # before anything is set up, with the caller's bin_width as it was
     db = build_toy_db(toy_dir)
     st_w = _port_whole(db, toy_dir.sam_path)
-    monkeypatch.setattr(native, "available", lambda: False)
-    st_o = tp.profile_file(TProfileOptions(), to_port(db),
-                           toy_dir.sam_path, device=CPU,
-                           engine=_teng(overlap_min_bytes=1))
+
+    def refuse(self, path, *args, **kw):
+        raise ValueError(f"{path}: the stream reader cannot take it")
+
+    monkeypatch.setattr(native.NativeStreamReader, "__init__", refuse)
+    options = TProfileOptions()
+    assert tp._profile_file_overlap(options, to_port(db),
+                                    toy_dir.sam_path, device=CPU,
+                                    engine=_teng()) is None
+    assert options.bin_width == 0
+    assert tp.path_counts["overlap_fallback_open"] == 1
+    seen = _fallback_bin_widths(monkeypatch)
     st_s = tp.profile_file_streaming(TProfileOptions(), to_port(db),
                                      toy_dir.sam_path, device=CPU,
                                      engine=_teng(overlap_min_bytes=1))
     # streaming gives way to profile_file, whose overlap path gives way too
-    assert tp.path_counts["overlap_fallback_no_native"] == 2
+    assert seen == [0]
+    assert tp.path_counts["stream_fallback_open"] == 1
+    assert tp.path_counts["overlap_fallback_open"] == 2
     assert tp.path_counts["stream_files"] == 0
-    assert_states_equal(st_w, st_o)
     assert_states_equal(st_w, st_s)
 
 
@@ -523,9 +593,12 @@ def test_give_way_on_overflow(toy_dir, monkeypatch):
                                     engine=_teng()) is None
     assert options.bin_width == 0
     assert tp.path_counts["overlap_fallback_overflow"] == 1
+    seen = _fallback_bin_widths(monkeypatch)
     st_j, st_t = _jax_and_port(jp.profile_file_streaming,
                                tp.profile_file_streaming, db,
                                toy_dir.sam_path, engine=_eng())
+    assert seen == [0]
+    assert tp.path_counts["stream_fallback_overflow"] == 1
     assert tp.path_counts["stream_files"] == 0
     assert_states_equal(st_j, st_t)
     assert_states_equal(st_w, st_t)
