@@ -71,7 +71,7 @@ import torch
 
 from ..config import EngineOptions, ProfileOptions
 from ..database import SlimmDatabase, tensorize
-from ..state import ProfileState, quantile_cut_off
+from ..state import LcaPairs, ProfileState, quantile_cut_off
 from ..utils.timer import PhaseTimer, span, work_counts
 
 from ..ops.hist import hist1, hist2
@@ -1066,36 +1066,34 @@ def _fill_state(st, out, dense, engine, options, timer):
 def taxon_counts_into(st, counts, dense) -> None:
     """The dense LCA counts int[n_dense] added to st.taxon_id__read_count
     (by taxid)."""
-    for d in np.flatnonzero(counts > 0).tolist():
-        tid = int(dense.dense_to_tid[d])
-        st.taxon_id__read_count[tid] = (
-            st.taxon_id__read_count.get(tid, 0) + int(counts[d]))
+    d = np.flatnonzero(counts > 0)
+    for tid, n in zip(dense.dense_to_tid[d].tolist(), counts[d].tolist()):
+        st.taxon_id__read_count[tid] = st.taxon_id__read_count.get(tid, 0) + n
 
 
 def pairs_into(st, pair_words, dense) -> None:
     """The bitpacked (contig x level code) pair presence of the packed tail
-    (int32 words) added to st.taxon_id__children: code < 8 is the read's
-    first agreeing lineage level L (the lca is lineage[r][L]), code 8 + k
-    means no level agreed (the lca is the k-th superkingdom id)."""
+    (int32 words) decoded into st.lca_pairs, one sorted CSR (state.LcaPairs)
+    that propagate_counts takes in: code < 8 is the read's first agreeing
+    lineage level L (the lca is lineage[r][L]), code 8 + k means no level
+    agreed (the lca is the k-th superkingdom id)."""
     pbytes = np.ascontiguousarray(pair_words).view(np.uint8)
     n_codes = dense.n_pair_codes
+    n_contigs = len(dense.lineage)
     pres = np.unpackbits(pbytes, bitorder="little")
-    nz = np.flatnonzero(pres[:len(dense.lineage) * n_codes])
-    r = (nz // n_codes).astype(np.int64)
-    code = (nz % n_codes).astype(np.int64)
-    lvl = code < 8
-    lca_d = np.where(lvl, dense.lineage[r, np.minimum(code, 7)],
+    nz = np.flatnonzero(pres[:n_contigs * n_codes])
+    r = nz // n_codes
+    code = nz % n_codes
+    lca_d = np.where(code < 8, dense.lineage[r, np.minimum(code, 7)],
                      dense.sk_dense[np.maximum(code, 8) - 8]
                      if len(dense.sk_dense) else 0)
-    pairs = np.unique(np.stack([lca_d, r], axis=1), axis=0)
-    # grouped set fills: pairs is sorted, so one slice per distinct LCA
-    d_vals, starts = np.unique(pairs[:, 0], return_index=True)
-    bounds = np.append(starts, len(pairs))
-    tids = dense.dense_to_tid[d_vals]
-    col = pairs[:, 1]
-    for i, tid in enumerate(tids.tolist()):
-        st.taxon_id__children.setdefault(int(tid), set()).update(
-            col[starts[i]:bounds[i + 1]].tolist())
+    # one key per pair, sorted by LCA, then contig
+    keys = np.unique(lca_d.astype(np.int64) * n_contigs + r)
+    lca = keys // n_contigs
+    starts = np.flatnonzero(np.diff(lca, prepend=-1))
+    st.lca_pairs = LcaPairs(dense, lca[starts], np.append(starts, len(keys)),
+                            (keys - lca * n_contigs).astype(np.int32))
+    work_counts["lca_pairs"] += len(keys)
 
 
 # copied from slimm_tpu/engine/pipeline.py:1253-1263

@@ -17,12 +17,16 @@ Replicated reference quirks are documented in slimm_tpu.oracle's docstring.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import TYPE_CHECKING
 
 import numpy as np
 
 from .config import ProfileOptions
 from .taxonomy import LINEAGE_LENGTH, considered_ranks, rank_name, rank_short
 from .utils.timer import span, work_counts
+
+if TYPE_CHECKING:
+    from .database import DenseTaxonomy
 
 f32 = np.float32
 
@@ -73,6 +77,24 @@ def quantile_cut_off(values, q) -> np.float32:
 
 
 @dataclass
+class LcaPairs:
+    """The (LCA, contig) children pairs of a profile as one sorted CSR, as
+    engine.pipeline.pairs_into decodes them from the pair presence: LCA i
+    is the dense id lca[i] of `dense` (the taxonomy of the state's
+    contigs), ascending, hence ascending taxids; its children are
+    contigs[offsets[i]:offsets[i + 1]], ascending."""
+
+    dense: DenseTaxonomy
+    lca: np.ndarray        # (k,) int64
+    offsets: np.ndarray    # (k + 1,) int64
+    contigs: np.ndarray    # (n_pairs,) int32
+
+    @property
+    def taxids(self) -> np.ndarray:
+        return self.dense.dense_to_tid[self.lca]
+
+
+@dataclass
 class ProfileState:
     """Everything the reports need for one input file (class slimm state,
     slimm.hpp:92-188, in dense-array form)."""
@@ -118,6 +140,9 @@ class ProfileState:
     valid_ref_ids: set = field(default_factory=set)
     taxon_id__read_count: dict = field(default_factory=dict)
     taxon_id__children: dict = field(default_factory=dict)
+    # children pairs decoded by pairs_into and not yet in taxon_id__children;
+    # propagate_counts takes them in
+    lca_pairs: LcaPairs = None
 
     _coverage_cut_off: np.float32 = f32(0.0)
     _uniq_coverage_cut_off: np.float32 = f32(0.0)
@@ -272,7 +297,9 @@ class ProfileState:
         (levels 1..7) of that contig's lineage.
 
         work_counts counts which of the two ran, the C++ or the loop,
-        and the LCA taxa it started from.
+        and the LCA taxa it started from.  The loop takes the children
+        pairs of lca_pairs in as sets first (take_pairs_as_sets); the C++
+        takes them as arrays.
         """
         work_counts["lca_taxa"] += len(self.taxon_id__read_count)
         if (len(self.taxon_id__read_count) >= self.NATIVE_PROPAGATE_MIN
@@ -280,6 +307,7 @@ class ProfileState:
             work_counts["native_propagations"] += 1
             return
         work_counts["python_propagations"] += 1
+        self.take_pairs_as_sets()
         snapshot = dict(self.taxon_id__read_count)
         for t_id in sorted(snapshot):
             count = snapshot[t_id]
@@ -306,57 +334,88 @@ class ProfileState:
                 ch.add(i)
                 ch.update(ref_ids)
 
+    def take_pairs_as_sets(self) -> None:
+        """Adds the children pairs of lca_pairs to taxon_id__children as
+        Python sets, one set filled for each LCA (counted in
+        work_counts["children_sets"]), and clears lca_pairs."""
+        pairs, self.lca_pairs = self.lca_pairs, None
+        if pairs is None:
+            return
+        off = pairs.offsets.tolist()
+        contigs = pairs.contigs.tolist()
+        for i, tid in enumerate(pairs.taxids.tolist()):
+            self.taxon_id__children.setdefault(tid, set()).update(
+                contigs[off[i]:off[i + 1]])
+        work_counts["children_sets"] += len(off) - 1
+
     def _propagate_native(self) -> bool:
         """Native C++ propagate_counts (stpu_propagate_run): exact
         sequential semantics of the loop above.  Returns False when the
         native code declines (the loop then runs — and raises — exactly as
-        before); a failed build of the library raises."""
+        before); a failed build of the library raises.
+
+        Where lca_pairs holds all the children and its LCAs are the
+        snapshot's taxids (a profile's finalize), it goes in as it is, with
+        the contig lineages and the LCAs' ranks from its dense taxonomy.
+        Those equal lineage_of_acc's and name_of's: tensorize read them
+        from the same two maps, into which nothing has gone since but the
+        insert-on-miss defaults (an all-zero lineage, rank 0).  Otherwise
+        the children are sets (take_pairs_as_sets), flattened here."""
         from .io import native
         n_contigs = len(self.accessions)
-        # name_of per snapshot key first: replicates the pure loop's
-        # insert-on-miss side effect on taxid__name and yields the ranks
-        tax = np.fromiter(sorted(self.taxon_id__read_count), np.int64,
-                          len(self.taxon_id__read_count))
-        cnt = np.fromiter((self.taxon_id__read_count[int(t)] for t in tax),
-                          np.int64, len(tax))
-        rnk = np.fromiter((self.name_of(int(t))[0] for t in tax), np.int32,
-                          len(tax))
-        lineage = np.asarray(
-            [self.lineage_of_acc(a) for a in self.accessions], np.int64
-        ).reshape(n_contigs, LINEAGE_LENGTH)
-        ch_items = list(self.taxon_id__children.items())
-        ctax = np.fromiter((t for t, _ in ch_items), np.int64, len(ch_items))
-        sizes = np.fromiter((len(s) for _, s in ch_items), np.int64,
-                            len(ch_items))
-        coff = np.zeros(len(ch_items) + 1, np.int64)
-        np.cumsum(sizes, out=coff[1:])
-        cch = np.empty(int(coff[-1]), np.int32)
-        for i, (_, s) in enumerate(ch_items):
-            cch[coff[i]:coff[i + 1]] = list(s)
+        read_count = self.taxon_id__read_count
+        tax = np.fromiter(read_count, np.int64, len(read_count))
+        cnt = np.fromiter(read_count.values(), np.int64, len(read_count))
+        order = np.argsort(tax)
+        tax, cnt = tax[order], cnt[order]
+        pairs = self.lca_pairs
+        if (pairs is not None and not self.taxon_id__children
+                and np.array_equal(pairs.taxids, tax)):
+            rnk = pairs.dense.tid_rank[pairs.lca]
+            for t in tax[rnk == 0].tolist():  # name_of's insert-on-miss
+                self.name_of(t)
+            lineage = pairs.dense.dense_to_tid[pairs.dense.lineage]
+            ctax, coff, cch = tax, pairs.offsets, pairs.contigs
+        else:
+            self.take_pairs_as_sets()
+            # name_of per snapshot key first: replicates the pure loop's
+            # insert-on-miss side effect on taxid__name and yields the ranks
+            rnk = np.fromiter((self.name_of(t)[0] for t in tax.tolist()),
+                              np.int32, len(tax))
+            lineage = np.asarray(
+                [self.lineage_of_acc(a) for a in self.accessions], np.int64
+            ).reshape(n_contigs, LINEAGE_LENGTH)
+            ch_items = list(self.taxon_id__children.items())
+            ctax = np.fromiter((t for t, _ in ch_items), np.int64,
+                               len(ch_items))
+            sizes = np.fromiter((len(s) for _, s in ch_items), np.int64,
+                                len(ch_items))
+            coff = np.zeros(len(ch_items) + 1, np.int64)
+            np.cumsum(sizes, out=coff[1:])
+            cch = np.empty(int(coff[-1]), np.int32)
+            for i, (_, s) in enumerate(ch_items):
+                cch[coff[i]:coff[i + 1]] = list(s)
         c2idx = np.flatnonzero(self.uniq_reads_count2 > 0).astype(np.int32)
         c2cnt = self.uniq_reads_count2[c2idx].astype(np.int64)
         res = native.propagate(n_contigs, lineage, tax, cnt, rnk, ctax,
                                coff, cch, c2idx, c2cnt)
         if res is None:
             return False
+        self.lca_pairs = None
         out_tax, out_cnt, out_flags, out_choff, out_cch = res
-        counts = {}
-        children = {}
-        choff_list = out_choff.tolist()
-        cnt_list = out_cnt.tolist()
-        flag_list = out_flags.tolist()
+        counted = (out_flags & 1).astype(bool)
+        self.taxon_id__read_count = dict(zip(out_tax[counted].tolist(),
+                                             out_cnt[counted].tolist()))
         # children become sorted int32 array views into the CSR payload —
         # materializing Python sets for ~10M total elements costs 10x the
         # propagation itself.  min()/iteration consumers handle both
         # representations (see _first_child / abundance_rows).
-        for i, t in enumerate(out_tax.tolist()):
-            f = flag_list[i]
-            if f & 1:
-                counts[t] = cnt_list[i]
-            if f & 2:
-                children[t] = out_cch[choff_list[i]:choff_list[i + 1]]
-        self.taxon_id__read_count = counts
-        self.taxon_id__children = children
+        with_children = np.flatnonzero(out_flags & 2)
+        choff = out_choff.tolist()
+        self.taxon_id__children = {
+            t: out_cch[choff[i]:choff[i + 1]]
+            for i, t in zip(with_children.tolist(),
+                            out_tax[with_children].tolist())}
         return True
 
     @staticmethod

@@ -10,7 +10,8 @@ span about 1.25 n_contigs taxids, n_lca LCA outcomes at those taxids.
 Then times the host tail as engine.pipeline._finalize_state runs it:
 
   1. the dense LCA counts -> taxid dict (pipeline.taxon_counts_into)
-  2. the pair-presence decode -> children sets (pipeline.pairs_into)
+  2. the pair-presence decode -> one sorted children CSR
+     (pipeline.pairs_into)
   3. propagate_counts (ancestor propagation, slimm.hpp:559-610)
   4. abundance_rows at every rank (what the report writers walk)
 
@@ -158,10 +159,10 @@ def main(argv=None) -> None:
           f"distinct_lca_taxids={n_distinct}")
 
     decoded, (s1, s2) = decode_tail(st)
-    n_pairs = sum(len(ch) for ch in decoded.taxon_id__children.values())
+    n_pairs = len(decoded.lca_pairs.contigs)
     print(f"dense counts -> taxid dict: {s1:.3f} s "
           f"({len(decoded.taxon_id__read_count)} taxids)")
-    print(f"pair decode -> children sets: {s2:.3f} s ({n_pairs} pairs)")
+    print(f"pair decode -> children CSR: {s2:.3f} s ({n_pairs} pairs)")
 
     t0 = time.perf_counter()
     st.propagate_counts()

@@ -22,13 +22,17 @@ from torch._C._profiler import _RecordFunctionFast
 # (`host_plans`, engine/pipeline.py plan_uploaded), and the ancestor
 # propagations (state.py propagate_counts) that ran in C++
 # (`native_propagations`) or in Python (`python_propagations`), with the LCA
-# taxa they started from (`lca_taxa`, summed over them), and the
-# coverage-quantile walks (state.py quantile_cut_off, `quantile_walks`) with
-# the values they walked (`quantile_values`, summed over them).
+# taxa they started from (`lca_taxa`, summed over them), the coverage-
+# quantile walks (state.py quantile_cut_off, `quantile_walks`) with the
+# values they walked (`quantile_values`, summed over them), the (LCA,
+# contig) pairs decoded from the pair presence (engine/pipeline.py
+# pairs_into, `lca_pairs`), and the Python children sets filled from those
+# pairs (state.py take_pairs_as_sets, `children_sets`: one an LCA on the
+# Python propagation, none where the pairs go to the C++ as arrays).
 work_counts = {"calls": 0, "h2d_bytes": 0, "minor_faults": 0, "cpu_s": 0.0,
                "device_plans": 0, "host_plans": 0, "native_propagations": 0,
                "python_propagations": 0, "lca_taxa": 0, "quantile_walks": 0,
-               "quantile_values": 0}
+               "quantile_values": 0, "lca_pairs": 0, "children_sets": 0}
 
 
 def span(stage: str):

@@ -497,10 +497,12 @@ def test_profile_finalize_equals_original(capsys, monkeypatch):
     assert len(masked(got)) == len(masked(want)) + 2
 
     # steps 1-2 give back the synthetic counts, and the children whose
-    # lineage holds their LCA
+    # lineage holds their LCA (the decoded CSR taken in as sets)
     st = tfinal.build_synthetic(n_contigs, n_lca)
     decoded, _ = tfinal.decode_tail(st)
     assert decoded.taxon_id__read_count == st.taxon_id__read_count
+    assert decoded.taxon_id__children == {}
+    decoded.take_pairs_as_sets()
     on_lineage = {t: {c for c in ch if t in st.ac__taxid[st.accessions[c]]}
                   for t, ch in st.taxon_id__children.items()}
     assert decoded.taxon_id__children == on_lineage

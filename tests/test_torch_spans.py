@@ -276,7 +276,8 @@ def test_reset_path_counts_zeroes_both_dicts(toy):
                               "cpu_s": 0.0, "device_plans": 0,
                               "host_plans": 0, "native_propagations": 0,
                               "python_propagations": 0, "lca_taxa": 0,
-                              "quantile_walks": 0, "quantile_values": 0}
+                              "quantile_walks": 0, "quantile_values": 0,
+                              "lca_pairs": 0, "children_sets": 0}
     assert set(tp.path_counts) == PATH_KEYS
 
 
@@ -301,15 +302,22 @@ def test_pairs_and_propagate_nest_once_in_each_finalize(toy, entry):
 @pytest.mark.parametrize("entry", list(ENTRIES))
 def test_propagations_are_counted_by_path(toy, entry):
     """One propagation a profiled file, in Python below
-    NATIVE_PROPAGATE_MIN LCA taxa (the toy's few), with the taxa summed."""
+    NATIVE_PROPAGATE_MIN LCA taxa (the toy's few), with the taxa summed;
+    the decoded (LCA, contig) pairs are counted, and the Python route fills
+    one children set from them for each LCA taxon."""
     states = ENTRIES[entry][0](toy)
-    assert tp.work_counts["python_propagations"] == len(states)
-    assert tp.work_counts["native_propagations"] == 0
-    assert 0 < tp.work_counts["lca_taxa"] < (
+    counts = tp.work_counts
+    assert counts["python_propagations"] == len(states)
+    assert counts["native_propagations"] == 0
+    assert 0 < counts["lca_taxa"] < (
         len(states) * states[0].NATIVE_PROPAGATE_MIN)
+    assert counts["children_sets"] == counts["lca_taxa"]
+    assert counts["lca_pairs"] >= counts["children_sets"]
+    assert all(st.lca_pairs is None for st in states)
     tp.reset_path_counts()
-    assert tp.work_counts["python_propagations"] == 0
-    assert tp.work_counts["lca_taxa"] == 0
+    assert counts["python_propagations"] == 0
+    assert counts["lca_taxa"] == counts["lca_pairs"] == 0
+    assert counts["children_sets"] == 0
 
 
 @pytest.mark.parametrize("entry", list(ENTRIES))
