@@ -2,7 +2,8 @@
 resolves in the three core cells only, reads the window's `slimm.quantile`
 spans over its calls (None on the file entry, and None for a program that
 opens no such span), and a traced CPU run of each core cell at a tiny
-size reports it, with four walks a call in `pipeline.work_counts`."""
+size (refseq50k.core cut down, conftest.py) reports it, with four walks
+a call in `pipeline.work_counts`."""
 
 import time
 
@@ -13,7 +14,8 @@ from harness import spans, trace
 from harness.spec import load_benchmark, load_cell, load_metric
 
 METRIC = "quantile_ms.core"
-CORE = ["genus50.core", "refseq1k.core"]     # refseq50k.core: no CPU run
+CORE = [w["name"] for w in load_benchmark()["workloads"]
+        if w["name"].endswith(".core")]
 RECORDS = 20000
 SEED = 2**33 + 1409
 
@@ -53,10 +55,10 @@ def test_the_metric_sums_the_walks_over_the_calls(monkeypatch):
 
 
 @pytest.mark.parametrize("name", CORE)
-def test_traced_cpu_run_reports_the_walks(name):
+def test_traced_cpu_run_reports_the_walks(name, cpu_sized):
     from slimm_tpu_torch.engine import pipeline
 
-    c = load_cell(name)
+    c = cpu_sized(load_cell(name))
     out = cell_mod.run_cell(c, seed=SEED, seconds=0.5, trace=True,
                             device="cpu", t_start=time.perf_counter(),
                             records=RECORDS, engine={"phase_log": False})

@@ -1,8 +1,8 @@
 """The per-layer metrics that read the program's own spans and counters
 (harness/spans.py): reported by a traced run of each cell on the CPU at a
-tiny size, and on the card (`-m card`) no device event of a traced window
-carries a program span's name, so the spans leave the device's busy time
-as it is."""
+tiny size (a cell past the CPU's size cut down, conftest.py), and on the
+card (`-m card`) no device event of a traced window carries a program
+span's name, so the spans leave the device's busy time as it is."""
 
 import time
 
@@ -28,8 +28,7 @@ PROGRAM = {
 ON_THE_CARD_ONLY = {"upload_gbps.core"}
 
 
-def _run(name, device, trace_on=True, seconds=0.5):
-    c = load_cell(name)
+def _run(c, device, trace_on=True, seconds=0.5):
     engine = {"phase_log": False}
     if c.traffic.get("path") == "overlap":
         engine["overlap_min_bytes"] = 1   # a tiny SAM takes the overlap path
@@ -39,8 +38,8 @@ def _run(name, device, trace_on=True, seconds=0.5):
 
 
 @pytest.mark.parametrize("name", CELLS)
-def test_traced_cpu_run_reports_the_program_metrics(name):
-    c, out = _run(name, "cpu")
+def test_traced_cpu_run_reports_the_program_metrics(name, cpu_sized):
+    c, out = _run(cpu_sized(load_cell(name)), "cpu")
     assert out["correct"] is True
     want = {m.name for m in c.per_layer} & PROGRAM
     assert want, "the cell reads none of the program's spans"
@@ -91,7 +90,7 @@ def test_no_device_event_carries_a_program_span(card, name, monkeypatch):
             return super().__exit__(*exc)
 
     monkeypatch.setattr(cell_mod, "Tracer", Keep)
-    _, out = _run(name, card, seconds=1.0)
+    _, out = _run(load_cell(name), card, seconds=1.0)
     assert out["correct"] is True
     events = kept[0].prof.profiler.kineto_results.events()
     cpu = torch.autograd.DeviceType.CPU
